@@ -18,7 +18,10 @@ card) and against the NumPy oracles:
    interpreter on the CPU (NaN compared as NaN), within 1e-5 of the suite
    oracles and bit-equal to the zoo oracles; ``block_stats`` equal to the
    verdicts pinned below (checked against the JAX reference by the CPU
-   tests);
+   tests); then the one-op edge-grid programs of
+   ``repro_torch.core.edge_grids`` (DIV/MOD/shifts/casts/MIN/MAX on edge
+   values, folds of ``-0.0``, folds and votes under divergence, atomic and
+   store order), bits equal to the plain version and the interpreter;
 2. full width, scalar path: one ``attn_decode`` step at Llama 3.2 3B's 24
    query heads of width 128 over a 4096-token window (K and V 48 MiB each),
    bits equal to the zoo oracle and to the plain version; then a second
@@ -27,8 +30,16 @@ card) and against the NumPy oracles:
    card and finished — bits unchanged;
 3. full width, block path: ``vadd`` over 2^24 elements;
 4. times: one launch of 2 and of 3 (median over warm launches, CUDA
-   events), their plain versions, one PyTorch call computing the same
-   function as a yardstick, and each kernel's bound.
+   events), the device time of its segment kernels alone, their plain
+   versions, one PyTorch call computing the same function as a yardstick,
+   and each kernel's bound; then one launch of each under
+   ``torch.profiler``, with the device time of every kernel it ran (the
+   segment kernels and the engine's copies) and the device's busy share.
+
+In the ``kernels`` line, ``ms`` is the device time of the segment kernels
+of one launch, ``launch_ms`` the latency of the whole launch (host work
+and the engine's copies included), ``plain_ms`` the same launch through the
+plain version on the card.
 
 The launch counts of the kernels are reset before phases 2-3 and read after
 them.  Any mismatch or launch error ends the run with a non-zero code.  The
@@ -204,6 +215,60 @@ def kernel_device_ms(backend, go) -> tuple:
     return sum(a.elapsed_time(b) for a, b in events), len(events)
 
 
+def profile_launch(go) -> dict:
+    """Device time (ms) of every kernel and copy that one warm call of
+    ``go()`` runs, by name, from a ``torch.profiler`` trace; empty when the
+    profiler recorded no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    go()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        go()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def print_profile(what: str, by_name: dict, launch_ms: float) -> None:
+    if not by_name:
+        print(f"# profile {what}: torch.profiler recorded no device "
+              "activity (device busy share not measured)")
+        return
+    busy = sum(by_name.values())
+    print(f"# profile {what}: device busy {busy:.4f} ms of a "
+          f"{launch_ms:.4f} ms launch (busy share {busy / launch_ms:.4f})")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"#   {ms:.4f} ms  {name[:90]}")
+
+
+def check_edge_grids(dev) -> int:
+    """Every edge-grid program through ``HetSession("cuda")`` on ``dev``,
+    bits equal to the plain version on ``dev`` and to the interpreter on
+    the CPU (NaN as NaN); returns the number of programs."""
+    from repro_torch.core import HetSession, TranslationCache
+    from repro_torch.core import edge_grids
+    cases = list(edge_grids.all_cases())
+    for label, (prog, grid, block, args, outs) in cases:
+        got = {}
+        for backend, device in (("cuda", dev), ("vectorized", dev),
+                                ("interp", "cpu")):
+            s = HetSession(backend, opt_level=0, device=device,
+                           cache=TranslationCache())
+            _, got[backend] = run_launch(s, prog, grid, block, args, outs)
+        for o in outs:
+            check(same_bits(got["cuda"][o], got["vectorized"][o]),
+                  f"edge grid {label} {o}: kernel != plain version")
+            check(same_bits(got["cuda"][o], got["interp"][o]),
+                  f"edge grid {label} {o}: kernel != interpreter")
+    return len(cases)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "core").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -219,6 +284,7 @@ def main() -> int:
     from repro_torch import zoo
     from repro_torch.core import (Engine, HetSession, OPT_MAX,
                                   TranslationCache, migrate)
+    from repro_torch.core import edge_grids
     from repro_torch.core import kernels_suite as ks
     from repro_torch.core.backends import get_backend
 
@@ -261,6 +327,9 @@ def main() -> int:
                             opt_level=OPT_MAX).program)
     optimized.append(Engine(vadd_prog, builder, VADD_N // VADD_BLOCK,
                             VADD_BLOCK, vadd_args, opt_level=OPT_MAX).program)
+    for _, (prog, grid, block, args, _) in edge_grids.all_cases():
+        optimized.append(
+            Engine(prog, builder, grid, block, args, opt_level=0).program)
     built = builder.prebuild(optimized)
     print(f"# nvcc: {built['built']} libraries built for "
           f"{len(optimized)} optimized programs in {built['seconds']:.1f} s "
@@ -300,6 +369,9 @@ def main() -> int:
     print(f"phase 1: {len(names)} kernels x O0/O{OPT_MAX}: bits equal to the "
           "plain version and the interpreter, oracles met, block_stats as "
           "pinned")
+    n_edge = check_edge_grids(dev)
+    print(f"phase 1: {n_edge} edge-grid programs: bits equal to the plain "
+          "version and the interpreter")
 
     # -- phases 2-3: the main path at full width -------------------------------
     attn_want = attn_oracle(dict(attn_args))["O"]
@@ -420,18 +492,22 @@ def main() -> int:
           f"= {vadd_bytes} B / 3.35 TB/s) on {smi}")
     print(f"# vadd 2^24: {vadd_nk} segment kernel takes {vadd_dev_ms:.4f} ms "
           "of device time")
+    print_profile("attn_decode step", profile_launch(attn_go), attn_ms)
+    print_profile("vadd 2^24", profile_launch(vadd_go), vadd_ms)
     src = "src/repro_torch/core/backends/cuda_backend.py"
     kernels = [
         {"name": "hetir_segment_scalar", "route": "cuda", "source": src,
          "replaces": "src/repro/core/backends/pallas_backend.py:120",
          "launches": launches["scalar"], "max_abs_err": attn_err,
-         "ms": attn_ms, "plain_ms": attn_plain_ms,
+         "ms": attn_dev_ms, "launch_ms": attn_ms,
+         "plain_ms": attn_plain_ms,
          "bound_ms": attn_bound_ms, "bound_by": "bytes",
          "library_ms": attn_lib_ms},
         {"name": "hetir_segment_block", "route": "cuda", "source": src,
          "replaces": "src/repro/core/backends/pallas_backend.py:263",
          "launches": launches["block"], "max_abs_err": vadd_err,
-         "ms": vadd_ms, "plain_ms": vadd_plain_ms,
+         "ms": vadd_dev_ms, "launch_ms": vadd_ms,
+         "plain_ms": vadd_plain_ms,
          "bound_ms": vadd_bound_ms, "bound_by": "bytes",
          "library_ms": vadd_lib_ms},
     ]

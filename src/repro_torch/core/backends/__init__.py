@@ -20,7 +20,8 @@ BACKENDS = {
 
 
 def get_backend(name: str, cache: TranslationCache = None, device=None):
-    """Instantiate a backend on ``device`` (default: the CPU); ``cache``
+    """Instantiate a backend on ``device`` (default ``cuda:0``, which needs
+    a GPU; pass ``"cpu"`` for the plain versions); ``cache``
     overrides the process-wide shared translation cache (tests pass a
     fresh one for counter isolation)."""
     return BACKENDS[name](cache=cache, device=device)

@@ -51,6 +51,19 @@ def to_numpy(value) -> np.ndarray:
     return np.array(value, copy=True)
 
 
+def resolve_device(device=None) -> torch.device:
+    """A session's or backend's device: ``cuda:0`` by default — which needs
+    a GPU — or whatever the caller names (``"cpu"`` runs the plain
+    versions)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on cuda:0 unless the caller "
+            "passes device='cpu'")
+    return torch.device("cuda", 0)
+
+
 @dataclass
 class Launch:
     program: ir.Program
@@ -86,8 +99,7 @@ class Backend:
         # all backends share one translation cache (paper §4.2: "the runtime
         # caches these translated kernels") unless handed a private one
         self.cache = cache if cache is not None else global_cache()
-        self.device = torch.device("cpu") if device is None \
-            else torch.device(device)
+        self.device = resolve_device(device)
 
     def run_segment(self, seg: SegNode, state: HostState,
                     launch: Launch) -> None:

@@ -64,9 +64,11 @@ from .semantics import (operand_dtype, run_segment_plain, segment_reg_dtypes,
 
 #: the largest hetIR block the scalar kernel takes (one thread per lane)
 MAX_BLOCK = 1024
-#: argument slots of ``HetArgs`` (csrc/hetir_rt.cuh): pointers, buffer
-#: lengths (the first pointer slots are the global buffers), scalars — sized
-#: to keep the struct under the 4 KB kernel-parameter limit
+#: argument slots of ``HetArgs``: pointers, buffer lengths (the first
+#: pointer slots are the global buffers), scalars — sized to keep the
+#: struct under the 4 KB kernel-parameter limit.  The one definition: every
+#: generated module passes them to csrc/hetir_rt.cuh as ``HET_MAX_*`` and
+#: asserts the struct's size against the ctypes mirror below
 MAX_PTRS, MAX_BUFS, MAX_SCALARS = 400, 64, 32
 
 _CT = {ir.F32: "float", ir.I32: "int", ir.U32: "unsigned", ir.BOOL: "bool"}
@@ -643,7 +645,12 @@ def emit_module(prog: ir.Program) -> Tuple[str, Dict[int, SegmentKernels]]:
     the per-segment launch metadata.  Deterministic in the program."""
     parts = ["// hetIR -> CUDA C++ segment kernels (repro_torch translator)",
              f"// program {prog.name} {ir.program_fingerprint(prog)}",
-             '#include "hetir_rt.cuh"', ""]
+             f"#define HET_MAX_PTRS {MAX_PTRS}",
+             f"#define HET_MAX_BUFS {MAX_BUFS}",
+             f"#define HET_MAX_SCALARS {MAX_SCALARS}",
+             '#include "hetir_rt.cuh"',
+             f"static_assert(sizeof(HetArgs) == {ctypes.sizeof(HetArgs)}, "
+             '"HetArgs differs from its ctypes mirror");', ""]
     kernels: Dict[int, SegmentKernels] = {}
     nodes = program_nodes(prog)
     live = {r.name for n in nodes if isinstance(n, SegNode) for r in n.uses}

@@ -72,7 +72,8 @@ import torch
 
 from . import hetir as ir
 from .backends import get_backend
-from .backends.base import TORCH_DTYPES, Backend, to_numpy, torch_dtype
+from .backends.base import (TORCH_DTYPES, Backend, resolve_device, to_numpy,
+                            torch_dtype)
 from .cache import TranslationCache
 from .engine import Engine
 from .passes import DEFAULT_OPT_LEVEL, OPT_MAX
@@ -155,18 +156,6 @@ def _ir_dtype(dtype) -> str:
                 return code
         raise TypeError(f"no hetIR dtype for {dtype}")
     return ir.ir_dtype(dtype)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The session device: ``cuda:0`` by default — which needs a GPU — or
-    whatever the caller names (``"cpu"`` runs the plain versions)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: HetSession runs on cuda:0 unless the caller "
-            "passes device='cpu'")
-    return torch.device("cuda", 0)
 
 
 def _host_array(host, np_dt: np.dtype, size: int) -> np.ndarray:

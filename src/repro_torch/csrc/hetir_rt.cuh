@@ -22,12 +22,14 @@
 
 #include <cuda_runtime.h>
 
-#define HET_MAX_PTRS 400
-#define HET_MAX_BUFS 64
-#define HET_MAX_SCALARS 32
+// The slot counts come from the translator (cuda_backend.MAX_PTRS, ...),
+// which defines them ahead of this header in every generated module.
+#if !defined(HET_MAX_PTRS) || !defined(HET_MAX_BUFS) || !defined(HET_MAX_SCALARS)
+#error "define HET_MAX_PTRS, HET_MAX_BUFS and HET_MAX_SCALARS before hetir_rt.cuh"
+#endif
 
-// Kernel arguments, passed by value (3848 bytes, under the 4 KB parameter
-// limit).  Slot numbers are fixed per segment by the translator: global
+// Kernel arguments, passed by value (under the 4 KB parameter limit; the
+// generated module asserts the size against the ctypes mirror).  Slot numbers are fixed per segment by the translator: global
 // buffers (whose lengths share their slot numbers), the shared-memory rows,
 // register inputs (null when the register is not live yet), register
 // outputs.  Scalars travel as raw 32-bit patterns.

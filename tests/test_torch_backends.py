@@ -23,6 +23,7 @@ from repro.core import kernels_suite as ref_ks
 
 import repro_torch.zoo  # noqa: F401
 from repro_torch.core import Engine, OPT_MAX, get_backend
+from repro_torch.core import edge_grids as edge
 from repro_torch.core import hetir as ir
 from repro_torch.core.backends.portable_math import (EXP_MAX_INPUT,
                                                      EXP_MIN_INPUT, exp_np,
@@ -106,44 +107,6 @@ def test_exp_torch_matches_exp_np():
 # one-op programs over edge grids
 # ---------------------------------------------------------------------------
 
-F32_EDGES = np.array([0.0, -0.0, 1.0, -1.0, 2.5, -2.5, 3.0, -7.0, 1e-40,
-                      -3e-39, 1e30, -1e30, 3.4e38, np.inf, -np.inf, np.nan,
-                      2147483648.0, -2147483648.0, 4e9, 1e19, -1e19, 0.5],
-                     np.float32)
-I32_EDGES = np.array([0, 1, -1, 2, -2, 3, -7, 7, 31, 32, 33, 100, -33,
-                      2 ** 31 - 1, -2 ** 31, 12345, -12345], np.int32)
-U32_EDGES = np.array([0, 1, 2, 3, 7, 31, 32, 33, 100, 2 ** 31, 2 ** 32 - 1,
-                      12345], np.uint32)
-
-
-def _grid(values):
-    """Every ordered pair of edge values, padded to whole 32-lane blocks."""
-    a, b = np.meshgrid(values, values, indexing="ij")
-    a, b = a.reshape(-1), b.reshape(-1)
-    n = -(-a.size // 32) * 32
-    pad = n - a.size
-    return (np.concatenate([a, a[:pad]]), np.concatenate([b, b[:pad]]),
-            n // 32)
-
-
-def _binary_prog(op, dt, out_dt=None):
-    out_dt = out_dt or (ref_ir.BOOL if op in ref_ir.CMP_OPS else dt)
-    b = ref_ir.Builder(f"one_{op}_{dt}",
-                       [ref_ir.Ptr("A", dt), ref_ir.Ptr("B", dt),
-                        ref_ir.Ptr("Out", out_dt)])
-    i = b.global_id(0)
-    b.store("Out", i, b._emit(op, out_dt, b.load("A", i), b.load("B", i)))
-    return b.done()
-
-
-def _unary_prog(op, src, dst):
-    b = ref_ir.Builder(f"one_{op}_{src}_{dst}",
-                       [ref_ir.Ptr("A", src), ref_ir.Ptr("Out", dst)])
-    i = b.global_id(0)
-    b.store("Out", i, b._emit(op, dst, b.load("A", i)))
-    return b.done()
-
-
 def _check_all(prog, grid, block, args, outs):
     want, ops = _run(RefEngine, ref_backend("interp"), prog, grid, block,
                      args, outs, 0)
@@ -158,80 +121,28 @@ def _check_all(prog, grid, block, args, outs):
     return want
 
 
-@pytest.mark.parametrize("op,dt", [
-    (op, dt) for dt in (ref_ir.I32, ref_ir.U32)
-    for op in (ref_ir.DIV, ref_ir.MOD, ref_ir.SHL, ref_ir.SHR, ref_ir.ADD,
-               ref_ir.SUB, ref_ir.MUL, ref_ir.MIN, ref_ir.MAX, ref_ir.LT)]
-    + [(op, ref_ir.F32) for op in (ref_ir.DIV, ref_ir.MOD, ref_ir.MIN,
-                                   ref_ir.MAX, ref_ir.ADD, ref_ir.MUL,
-                                   ref_ir.LE, ref_ir.NE)])
+@pytest.mark.parametrize("op,dt", edge.BINARY_CASES)
 def test_binary_ops_on_edge_grids(op, dt):
-    edges = {ref_ir.F32: F32_EDGES, ref_ir.I32: I32_EDGES,
-             ref_ir.U32: U32_EDGES}[dt]
-    a, b, blocks = _grid(edges)
-    out_dt = ref_ir.BOOL if op in ref_ir.CMP_OPS else dt
-    prog = _binary_prog(op, dt)
-    _check_all(prog, blocks, 32, {"A": a, "B": b, "Out": np.zeros(
-        a.size, ref_ir.np_dtype(out_dt))}, ("Out",))
+    _check_all(*edge.binary_case(op, dt, ref_ir))
 
 
-@pytest.mark.parametrize("src,dst", [
-    (s, d) for s in (ref_ir.F32, ref_ir.I32, ref_ir.U32, ref_ir.BOOL)
-    for d in (ref_ir.F32, ref_ir.I32, ref_ir.U32, ref_ir.BOOL) if s != d])
+@pytest.mark.parametrize("src,dst", edge.CVT_CASES)
 def test_cvt_on_edge_values(src, dst):
-    vals = {ref_ir.F32: F32_EDGES, ref_ir.I32: I32_EDGES,
-            ref_ir.U32: U32_EDGES,
-            ref_ir.BOOL: np.array([True, False] * 3)}[src]
-    a = np.resize(vals, -(-vals.size // 32) * 32)
-    prog = _unary_prog(ref_ir.CVT, src, dst)
-    _check_all(prog, a.size // 32, 32,
-               {"A": a, "Out": np.zeros(a.size, ref_ir.np_dtype(dst))},
-               ("Out",))
+    _check_all(*edge.cvt_case(src, dst, ref_ir))
 
 
-@pytest.mark.parametrize("op", [ref_ir.NEG, ref_ir.ABS, ref_ir.SQRT,
-                                ref_ir.EXP])
+@pytest.mark.parametrize("op", edge.UNARY_OPS)
 def test_float_unary_ops_on_edge_values(op):
-    a = np.resize(F32_EDGES, 32)
-    _check_all(_unary_prog(op, ref_ir.F32, ref_ir.F32), 1, 32,
-               {"A": a, "Out": np.zeros(32, np.float32)}, ("Out",))
+    _check_all(*edge.unary_case(op, ref_ir))
 
 
 def test_reduce_add_of_negative_zeros_is_positive_zero():
-    b = ref_ir.Builder("neg_zero_fold", [ref_ir.Ptr("A"), ref_ir.Ptr("S"),
-                                         ref_ir.Ptr("C")])
-    i = b.global_id(0)
-    x = b.load("A", i)
-    b.store("S", i, b.reduce_add(x))
-    b.store("C", i, b.scan_add(x))
-    a = np.full(8, -0.0, np.float32)
-    want = _check_all(b.done(), 2, 4, {"A": a, "S": np.ones(8, np.float32),
-                                       "C": np.ones(8, np.float32)},
-                      ("S", "C"))
+    want = _check_all(*edge.neg_zero_fold_case(ref_ir))
     assert not np.signbit(want["S"]).any() and not np.signbit(want["C"]).any()
 
 
 def test_collectives_fold_in_lane_order_under_divergence():
-    b = ref_ir.Builder("folds", [ref_ir.Ptr("A"), ref_ir.Ptr("R"),
-                                 ref_ir.Ptr("M"), ref_ir.Ptr("P"),
-                                 ref_ir.Ptr("V", ref_ir.I32)])
-    i = b.global_id(0)
-    t = b.thread_id()
-    x = b.load("A", i)
-    with b.when((t % b.const(3)).ne(b.const(1))):
-        b.store("R", i, b.reduce_add(x))
-        b.store("M", i, b.reduce_max(x))
-        b.store("P", i, b.scan_add(x))
-        b.store("V", i, b.ballot(x > b.const(0.0, ref_ir.F32)))
-    rng = np.random.default_rng(3)
-    a = (rng.standard_normal(64) * 10.0 ** rng.integers(-3, 8, 64)) \
-        .astype(np.float32)
-    a[5] = np.nan
-    _check_all(b.done(), 2, 32, {"A": a, "R": np.zeros(64, np.float32),
-                                 "M": np.zeros(64, np.float32),
-                                 "P": np.zeros(64, np.float32),
-                                 "V": np.zeros(64, np.int32)},
-               ("R", "M", "P", "V"))
+    _check_all(*edge.divergent_folds_case(ref_ir))
 
 
 def test_atomic_add_and_conflicting_stores_follow_lane_order():
@@ -239,18 +150,19 @@ def test_atomic_add_and_conflicting_stores_follow_lane_order():
     rounding of every add, and the old value each lane sees, depend on
     it); several lanes storing to one address leave the highest lane's
     value."""
-    b = ref_ir.Builder("atomics", [ref_ir.Ptr("A"), ref_ir.Ptr("Acc"),
-                                   ref_ir.Ptr("Old"), ref_ir.Ptr("Last")])
-    i = b.global_id(0)
-    t = b.thread_id()
-    x = b.load("A", i)
-    old = b.atomic_add("Acc", t % b.const(2), x)
-    b.store("Old", i, old)
-    b.store("Last", t % b.const(4), x)
-    rng = np.random.default_rng(5)
-    a = (rng.standard_normal(96) * 10.0 ** rng.integers(-4, 9, 96)) \
-        .astype(np.float32)
-    _check_all(b.done(), 3, 32, {"A": a, "Acc": np.zeros(2, np.float32),
-                                 "Old": np.zeros(96, np.float32),
-                                 "Last": np.zeros(4, np.float32)},
-               ("Acc", "Old", "Last"))
+    _check_all(*edge.atomic_order_case(ref_ir))
+
+
+def test_edge_grids_built_by_either_package_are_the_same_programs():
+    """chip_smoke.py builds the edge grids with the port's hetIR; the
+    tests above build them with the reference's."""
+    ref = dict(edge.all_cases(ref_ir))
+    port = dict(edge.all_cases())
+    assert ref.keys() == port.keys()
+    for label, (prog, grid, block, args, outs) in port.items():
+        rprog, rgrid, rblock, rargs, routs = ref[label]
+        assert ir.program_fingerprint(prog) == \
+            ir.program_fingerprint(ir.from_foreign(rprog)), label
+        assert (grid, block, outs) == (rgrid, rblock, routs)
+        for k in args:
+            assert same_bits(args[k], rargs[k]), (label, k)

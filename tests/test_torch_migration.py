@@ -114,3 +114,16 @@ def test_session_defaults_to_the_card_and_refuses_without_one():
             HetSession()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HetSession("interp", device="cpu", store="/nonexistent")
+
+
+@pytest.mark.parametrize("name", ["interp", "vectorized", "cuda"])
+def test_backend_defaults_to_the_card_and_refuses_without_one(name):
+    """``Engine(prog, get_backend(name), ...)`` is an entry point too: a
+    backend made without a device is on ``cuda:0``, never silently on the
+    CPU."""
+    if torch.cuda.is_available():
+        assert get_backend(name).device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_backend(name)
+    assert get_backend(name, device="cpu").device == torch.device("cpu")
