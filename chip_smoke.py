@@ -12,7 +12,9 @@ card) and against the NumPy oracles:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the ``nvcc`` build of every segment library used below (one ``nvcc``
-   per optimized program, all running concurrently);
+   per optimized program) and of the four hand-written kernels of
+   ``repro_torch.kernels`` (one ``nvcc`` per source), all running
+   concurrently;
 1. all 17 suite and 4 zoo kernels at their canonical launch, at O0 and
    OPT_MAX: bits equal to the plain version on the card and to the NumPy
    interpreter on the CPU (NaN compared as NaN), within 1e-5 of the suite
@@ -36,19 +38,44 @@ card) and against the NumPy oracles:
    ``torch.profiler``, with the device time of every kernel it ran (the
    segment kernels and the engine's copies) and the device's busy share.
 
-In the ``kernels`` line, ``ms`` is the device time of the segment kernels
-of one launch, ``launch_ms`` the latency of the whole launch (host work
-and the engine's copies included), ``plain_ms`` the same launch through the
-plain version on the card.
+5. the kernel library (``repro_torch.kernels``) at full width, through
+   its user entry points (the ``autograd.Function`` ops): flash attention
+   at Llama 3.2 3B's prefill (24 heads of 128 over 4096 tokens, causal,
+   bf16 and f32) and recurrentgemma-2b's local attention (10 heads of 256,
+   window 2048, bf16); the MoE grouped matmul at granite-moe-3b-a800m's
+   experts (40 x 1024 rows x 1536 -> 512, bf16, seeded counts with an
+   empty and a full expert); the RG-LRU scan at recurrentgemma-2b's width
+   (4096 steps x 2560 channels, bf16); the mLSTM chunk kernel at
+   xlstm-125m's width (32 batch-heads x 4096 steps, dk = dv = 384, f32,
+   bt 128).  Each result is held against the kernel's plain version and
+   the torch oracle on the card, at the JAX tests' tolerances in the
+   working type; empty experts must be exact zeros, the scan bit-equal,
+   the mLSTM kernel at bt 32 within 1e-3 of bt 128; one small gradient per
+   op through its ``autograd.Function`` against autograd of the oracle;
+   and ``het_kernel`` runs a suite program on the card bit-equal to
+   ``het_kernel_ref``.
+
+Phase 4 runs last and also times the four kernels (CUDA events, median of
+warm launches), their plain versions, and the one PyTorch call that
+computes the same function where there is one (``scaled_dot_product_attention``
+for flash attention, ``torch.bmm`` for the grouped matmul).
+
+In the ``kernels`` line, a segment kernel's ``ms`` is the device time of
+the segment kernels of one launch, ``launch_ms`` the latency of the whole
+launch (host work and the engine's copies included), ``plain_ms`` the same
+launch through the plain version on the card; a library kernel's ``ms`` is
+its device time at the main path's shape, ``plain_ms`` its plain version's.
 
 The launch counts of the kernels are reset before phases 2-3 and read after
-them.  Any mismatch or launch error ends the run with a non-zero code.  The
-last line is ``{"ok": true, "device": {...}}``.
+them, and reset before phase 5's main path and read after it.  Any
+mismatch or launch error ends the run with a non-zero code.  The last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
 import math
+from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
@@ -61,6 +88,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 #: float32 rate outside the tensor cores (same source)
 F32_OPS_PER_S = 67e12
+#: dense bf16 rate of the tensor cores (same source)
+BF16_OPS_PER_S = 989e12
 
 #: block-path verdicts per kernel and opt level at the canonical launch:
 #: (tiled segment executions, scalar executions, refusal categories).
@@ -107,6 +136,28 @@ PINNED_BLOCK_STATS = {
 ATTN_H, ATTN_D, ATTN_T, ATTN_NTILES = 24, 128, 128, 32
 #: full-width elementwise launch: 2^24 float32 elements, block 256
 VADD_N, VADD_BLOCK = 1 << 24, 256
+
+#: phase 5 shapes, from the repo's model configurations (src/repro/configs):
+#: Llama 3.2 3B prefill: 24 query heads of 128 (kv repeated), 4096 tokens
+FA_B, FA_H, FA_S, FA_D = 1, 24, 4096, 128
+#: recurrentgemma-2b local attention: 10 heads of 2560 / 10, window 2048
+RGA_H, RGA_D, RGA_WINDOW = 10, 256, 2048
+#: granite-moe-3b-a800m experts: 40 experts, d_model 1536, d_ff 512 each;
+#: capacity of a 4096-token batch at top-8 and factor 1.25:
+#: ceil(4096 * 8 / 40 * 1.25) = 1024 rows
+GMM_E, GMM_C, GMM_D, GMM_F = 40, 1024, 1536, 512
+#: recurrentgemma-2b RG-LRU: d_rnn 2560, 4096 steps, one sequence
+RG_B, RG_S, RG_D = 1, 4096, 2560
+#: xlstm-125m mLSTM: 4 heads of (2 * 768) / 4 = 384 keys and values, a
+#: batch of 8 sequences of 4096 steps, chunks of 128
+ML_BH, ML_S, ML_DK, ML_BT = 8 * 4, 4096, 384, 128
+#: the TPU kernel each library kernel replaces (its Pallas wrapper)
+REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:98",
+    "moe_gmm": "src/repro/kernels/moe_gmm/kernel.py:47",
+    "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:54",
+    "mlstm_chunk": "src/repro/kernels/mlstm_chunk/kernel.py:79",
+}
 
 
 class SmokeFailure(Exception):
@@ -269,6 +320,215 @@ def check_edge_grids(dev) -> int:
     return len(cases)
 
 
+def _outs(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _close(got, want, tol: float) -> bool:
+    """Within ``tol`` (absolute and relative); bit-equal for 0."""
+    import torch
+    return all(torch.equal(g, w) if tol == 0 else
+               torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+               for g, w in zip(_outs(got), _outs(want)))
+
+
+def _err(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(_outs(got), _outs(want)))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class LibCase:
+    """One full-width call of a library kernel: the user entry point
+    (``op``, the main path), the wrapper alone (``fwd``, for timing), its
+    plain version and oracle on the same inputs, the tolerance in the
+    working type (0: bit-equal), the bytes and operations of its bound,
+    the PyTorch call that computes the same function where there is one,
+    a second tiling of the kernel that must agree within 1e-3, and a
+    predicate the output must meet (its docstring says what failed)."""
+
+    def __init__(self, kernel, label, op, fwd, plain, ref, tol, nbytes,
+                 ops, ops_rate, library=None, retiled=None, invariant=None):
+        self.kernel, self.label = kernel, label
+        self.op, self.fwd, self.plain, self.ref = op, fwd, plain, ref
+        self.tol, self.nbytes, self.ops = tol, nbytes, ops
+        self.ops_rate, self.library, self.retiled = ops_rate, library, retiled
+        self.invariant = invariant
+        self.out = self.err = None
+
+    def bound(self) -> tuple:
+        """(bound in ms, "bytes" or "operations")."""
+        t_bytes = self.nbytes / HBM_BYTES_PER_S
+        t_ops = self.ops / self.ops_rate
+        return max(t_bytes, t_ops) * 1e3, \
+            "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_cases(dev) -> list:
+    """The phase 5 calls, on inputs made on the card from a seed."""
+    import torch
+    import torch.nn.functional as tf
+    from repro_torch.kernels import (flash_attention, mlstm_chunk, moe_gmm,
+                                     rglru_scan)
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mlstm_chunk import kernel as ml
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+    from repro_torch.kernels.moe_gmm import kernel as gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+    from repro_torch.kernels.rglru_scan import kernel as rg
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def attn_pairs(S, window):
+        q = torch.arange(S, dtype=torch.float64)
+        seen = q + 1 if window is None else torch.clamp(q + 1, max=window)
+        return float(seen.sum())
+
+    cases = []
+
+    def flash(label, q, k, v, window, library):
+        B, H, S, d = q.shape
+        rate = BF16_OPS_PER_S if q.dtype == bf16 else F32_OPS_PER_S
+        cases.append(LibCase(
+            "flash_attention", label,
+            lambda: flash_attention(q, k, v, True, window),
+            lambda: fa.flash_attention_fwd(q, k, v, causal=True,
+                                           window=window),
+            lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                             window=window),
+            lambda: attention_ref(q, k, v, causal=True, window=window),
+            2e-2 if q.dtype == bf16 else 2e-5, _nbytes(q, k, v, q),
+            4 * d * B * H * attn_pairs(S, window), rate, library))
+
+    qkv = [randn(FA_B, FA_H, FA_S, FA_D, dtype=bf16) for _ in range(3)]
+    flash("Llama 3.2 3B prefill, bf16", *qkv, None,
+          lambda: tf.scaled_dot_product_attention(*qkv, is_causal=True))
+    qkv32 = [t.float() for t in qkv]
+    flash("Llama 3.2 3B prefill, f32", *qkv32, None,
+          lambda: tf.scaled_dot_product_attention(*qkv32, is_causal=True))
+    rqkv = [randn(1, RGA_H, FA_S, RGA_D, dtype=bf16) for _ in range(3)]
+    pos = torch.arange(FA_S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) \
+        & (pos[None, :] > pos[:, None] - RGA_WINDOW)
+    flash("recurrentgemma-2b local attention, bf16", *rqkv, RGA_WINDOW,
+          lambda: tf.scaled_dot_product_attention(*rqkv, attn_mask=band))
+
+    counts = torch.randint(0, GMM_C + 1, (GMM_E,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    counts[0], counts[1] = 0, GMM_C          # one empty, one full expert
+    x = randn(GMM_E, GMM_C, GMM_D, dtype=bf16)
+    w = randn(GMM_E, GMM_D, GMM_F, scale=GMM_D ** -0.5, dtype=bf16)
+    live = counts.long()
+    dead = torch.arange(GMM_C, device=dev)[None, :] >= counts[:, None]
+    x[dead] = 0                # the contract: rows past counts[e] are zero
+
+    def dead_rows_zero(out):
+        """rows past counts[e] (all of the empty expert) are not zeros"""
+        return bool((out[dead] == 0).all())
+
+    cases.append(LibCase(
+        "moe_gmm", "granite-moe-3b-a800m experts, bf16",
+        lambda: moe_gmm(x, w, counts), lambda: gmm.moe_gmm_fwd(x, w, counts),
+        lambda: gmm.moe_gmm_plain(x, w, counts),
+        lambda: moe_gmm_ref(x, w, counts), 5e-2,
+        # live rows of x, the weights of experts with a live row, all of
+        # the output, the counts
+        int(live.sum()) * GMM_D * 2 + int((live > 0).sum()) * GMM_D
+        * GMM_F * 2 + GMM_E * GMM_C * GMM_F * 2 + 4 * GMM_E,
+        2.0 * int(live.sum()) * GMM_D * GMM_F, BF16_OPS_PER_S,
+        lambda: torch.bmm(x, w), invariant=dead_rows_zero))
+
+    a = uniform(0.7, 0.999, RG_B, RG_S, RG_D).to(bf16)
+    xr = randn(RG_B, RG_S, RG_D, scale=0.1, dtype=bf16)
+    h0 = randn(RG_B, RG_D, scale=0.1)
+    cases.append(LibCase(
+        "rglru_scan", "recurrentgemma-2b RG-LRU, bf16",
+        lambda: rglru_scan(a, xr, h0), lambda: rg.rglru_scan_fwd(a, xr, h0),
+        lambda: rg.rglru_scan_plain(a, xr, h0),
+        lambda: rglru_scan_ref(a, xr, h0), 0.0,
+        _nbytes(a, xr, a, h0, h0), 2.0 * RG_B * RG_S * RG_D,
+        F32_OPS_PER_S))
+
+    q, k, v = (randn(ML_BH, ML_S, ML_DK, scale=0.5) for _ in range(3))
+    lf = torch.log(uniform(0.9, 0.999, ML_BH, ML_S, 1))
+    gi = uniform(0.1, 1.0, ML_BH, ML_S, 1)
+    n, dk = ML_BT, ML_DK
+    per_chunk = 2 * (n * n * dk + n * dk * dk + n * n * dk + dk * n * dk)
+    cases.append(LibCase(
+        "mlstm_chunk", "xlstm-125m mLSTM, f32, bt 128",
+        lambda: mlstm_chunk(q, k, v, lf, gi),
+        lambda: ml.mlstm_chunk_fwd(q, k, v, lf, gi, bt=ML_BT),
+        lambda: ml.mlstm_chunk_plain(q, k, v, lf, gi, bt=ML_BT),
+        lambda: mlstm_chunk_ref(q, k, v, lf, gi), 2e-3,
+        _nbytes(q, k, v, lf, gi, q) + ML_BH * dk * dk * 4,
+        float(per_chunk) * ML_BH * (ML_S // ML_BT), F32_OPS_PER_S,
+        retiled=lambda: ml.mlstm_chunk_fwd(q, k, v, lf, gi, bt=32)))
+    return cases
+
+
+def check_library_grads(dev) -> None:
+    """One small gradient per op: its ``autograd.Function`` (forward
+    kernel, backward through the oracle) against autograd of the oracle,
+    at 1e-3."""
+    import torch
+    from repro_torch.kernels import (flash_attention, mlstm_chunk, moe_gmm,
+                                     rglru_scan)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_ref
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def leaf(*shape, lo=None, hi=None):
+        t = torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo \
+            if lo is not None else \
+            torch.randn(shape, generator=gen, device=dev) * 0.5
+        return t.requires_grad_()
+
+    def grads(fn, ins):
+        loss = sum((o.float() ** 2).sum() for o in _outs(fn(*ins)))
+        return torch.autograd.grad(loss, ins)
+
+    counts = torch.tensor([20, 64], dtype=torch.int32, device=dev)
+    xg = torch.randn((2, 64, 24), generator=gen, device=dev)
+    xg[0, 20:] = 0
+    pairs = {
+        "flash_attention": (
+            lambda q, k, v: flash_attention(q, k, v, True, None),
+            lambda q, k, v: attention_ref(q, k, v, causal=True),
+            [leaf(1, 2, 70, 64) for _ in range(3)]),
+        "moe_gmm": (lambda x, w: moe_gmm(x, w, counts),
+                    lambda x, w: moe_gmm_ref(x, w, counts),
+                    [xg.requires_grad_(), leaf(2, 24, 40)]),
+        "rglru_scan": (rglru_scan, rglru_scan_ref,
+                       [leaf(1, 40, 16, lo=0.7, hi=0.99), leaf(1, 40, 16),
+                        leaf(1, 16)]),
+        "mlstm_chunk": (mlstm_chunk, mlstm_chunk_ref,
+                        [leaf(2, 40, 8) for _ in range(3)]
+                        + [torch.log(leaf(2, 40, 1, lo=0.9, hi=0.99))
+                           .detach().requires_grad_(),
+                           leaf(2, 40, 1, lo=0.1, hi=1.0)]),
+    }
+    for name, (op, ref, ins) in pairs.items():
+        for g, r in zip(grads(op, ins), grads(ref, ins)):
+            check(torch.allclose(g, r, atol=1e-3, rtol=1e-3),
+                  f"{name}: gradient through the op != oracle's")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "core").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -287,6 +547,7 @@ def main() -> int:
     from repro_torch.core import edge_grids
     from repro_torch.core import kernels_suite as ks
     from repro_torch.core.backends import get_backend
+    from repro_torch.kernels import _cuda as kernel_lib
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
@@ -315,6 +576,10 @@ def main() -> int:
         "B": rng.standard_normal(VADD_N).astype(np.float32),
         "C": np.zeros(VADD_N, np.float32), "n": VADD_N,
     }
+    # the hand-written kernels build while the segment sources are generated
+    # and built: one nvcc per source, all started together
+    pool = ThreadPoolExecutor(1)
+    kernel_build = pool.submit(kernel_lib.prebuild)
     builder = get_backend("cuda", device=dev)
     optimized = []
     for name in names:
@@ -331,9 +596,14 @@ def main() -> int:
         optimized.append(
             Engine(prog, builder, grid, block, args, opt_level=0).program)
     built = builder.prebuild(optimized)
+    kbuilt = kernel_build.result()
+    pool.shutdown()
     print(f"# nvcc: {built['built']} libraries built for "
           f"{len(optimized)} optimized programs in {built['seconds']:.1f} s "
           "(concurrent, one nvcc per program)")
+    print(f"# nvcc: {kbuilt['built']} of the {len(kernel_lib.KERNELS)} "
+          f"hand-written kernel libraries built in {kbuilt['seconds']:.1f} s "
+          "(concurrent with the segment libraries)")
 
     # -- phase 1: every kernel against its plain version and the oracle ---------
     for name in names:
@@ -436,6 +706,62 @@ def main() -> int:
           "vadd 2^24: kernel != plain version")
     vadd_err = max_abs_err(vout["C"], pvout["C"])
 
+    # -- phase 5: the kernel library at full width ----------------------------
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.hetir_gen import het_kernel
+    from repro_torch.kernels.hetir_gen.ref import het_kernel_ref
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_fwd
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    torch.backends.cuda.matmul.allow_tf32 = False   # the oracles in IEEE f32
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = {"flash_attention": flash_attention_fwd, "moe_gmm": moe_gmm_fwd,
+                "rglru_scan": rglru_scan_fwd, "mlstm_chunk": mlstm_chunk_fwd}
+    cases = library_cases(dev)
+    for fn in wrappers.values():
+        fn.launches = 0
+    for c in cases:
+        c.out = c.op()
+    torch.cuda.synchronize()
+    lib_launches = {n: fn.launches for n, fn in wrappers.items()}
+    check(all(v > 0 for v in lib_launches.values()),
+          f"phase 5 main path missed a kernel: launches {lib_launches}")
+    for c in cases:
+        want = c.plain()
+        check(_close(c.out, want, c.tol),
+              f"{c.label}: kernel != plain version")
+        c.err = _err(c.out, want)
+        want = c.ref()
+        check(_close(c.out, want, c.tol), f"{c.label}: kernel != oracle")
+        ref_err = _err(c.out, want)
+        del want
+        also = ""
+        if c.invariant is not None:
+            check(c.invariant(c.out), f"{c.label}: {c.invariant.__doc__}")
+            also += "; dead rows exact zeros"
+        if c.retiled is not None:
+            check(_close(c.out, c.retiled(), 1e-3),
+                  f"{c.label}: bt 32 != bt {ML_BT}")
+            also += f"; bt 32 within 1e-3 of bt {ML_BT}"
+        print(f"phase 5: {c.label}: kernel within {c.tol} of the plain "
+              f"version (max abs err {c.err:.4g}) and the oracle "
+              f"({ref_err:.4g}){also}")
+    check_library_grads(dev)
+    print("phase 5: each op's gradient through its autograd.Function equals "
+          "autograd of its oracle within 1e-3")
+    prog, _, grid, block, args, _ = ks.example_launch(
+        "matmul_tiled", rng=np.random.default_rng(42))
+    het = het_kernel(prog, grid, block)
+    got, want = het(**args), het_kernel_ref(prog, grid, block)(**args)
+    torch.cuda.synchronize()
+    check(all(same_bits(got[b], want[b]) for b in want),
+          "het_kernel on the card != het_kernel_ref")
+    check(sum(het.backend.launches.values()) > 0,
+          "het_kernel launched no segment kernel")
+    print(f"phase 5: het_kernel(matmul_tiled) on the card bit-equal to "
+          f"het_kernel_ref; segment launches {dict(het.backend.launches)}")
+    print(f"# kernel-library launches in phase 5's main path: {lib_launches}")
+
     # -- phase 4: times ---------------------------------------------------------
     def launcher(session, prog, grid, block, args):
         fn = session.load(prog).function()
@@ -511,6 +837,28 @@ def main() -> int:
          "bound_ms": vadd_bound_ms, "bound_by": "bytes",
          "library_ms": vadd_lib_ms},
     ]
+    # the kernel library at phase 5's shapes: the first case of each kernel
+    # goes into the kernels line
+    for c in cases:
+        ms = time_ms(c.fwd, 10)
+        plain_ms = time_ms(c.plain, 3)
+        # rglru_scan and mlstm_chunk: no single PyTorch call computes a
+        # linear recurrence or chunked gated linear attention, so null
+        lib_ms = time_ms(c.library, 10) if c.library is not None else None
+        bound_ms, bound_by = c.bound()
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"# {c.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library call {lib_txt}, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({c.nbytes} B, {c.ops:.6g} operations) on {smi}")
+        if any(k["name"] == c.kernel for k in kernels):
+            continue
+        kernels.append(
+            {"name": c.kernel, "route": "cuda",
+             "source": f"src/repro_torch/csrc/kernels/{c.kernel}.cu",
+             "replaces": REPLACES[c.kernel],
+             "launches": lib_launches[c.kernel], "max_abs_err": c.err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

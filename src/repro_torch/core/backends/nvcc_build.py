@@ -1,11 +1,20 @@
-"""Build helper for generated CUDA sources: ``nvcc`` into a shared library
-with a plain C interface, loaded with ``ctypes``.
+"""Build helper for CUDA sources: ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes``.
+
+Two kinds of source build here:
+
+* the segment kernels the CUDA backend generates from hetIR, over the
+  device-runtime header ``csrc/hetir_rt.cuh`` (:func:`build_many`), with
+  hetIR's one-rounding-per-op flags (:data:`NVCC_FLAGS`);
+* the hand-written kernels of :mod:`repro_torch.kernels`, one fixed file
+  ``csrc/kernels/<name>.cu`` each (:func:`build_kernels`), with
+  :data:`KERNEL_NVCC_FLAGS`.
 
 Every library lands in ``build/repro_torch/`` at the root of the checkout,
-named by a hash of the generated source, the device-runtime header, the
-compiler flags and the runtime tag — so a second process (or a second launch of the same
-program) finds the library and skips ``nvcc``.  Several sources build
-concurrently through :func:`build_many`, one ``nvcc`` process each.
+named by a hash of its source (and, for generated sources, the header), the
+compiler flags and the runtime tag — so a second process (or a second
+launch of the same program) finds the library and skips ``nvcc``.  Several
+sources build concurrently, one ``nvcc`` process each.
 """
 from __future__ import annotations
 
@@ -30,6 +39,14 @@ BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
               "-ftz=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+#: the hand-written kernels carry no one-rounding-per-op contract, so the
+#: compiler may contract multiply-adds; still IEEE division and square
+#: root, no flush to zero, no fast math
+KERNEL_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                     "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
+                     "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+#: ``src/repro_torch/csrc/kernels``: one self-contained ``.cu`` per kernel
+KERNEL_DIR = CSRC / "kernels"
 
 
 def nvcc_path() -> str:
@@ -58,13 +75,26 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"het_{h.hexdigest()[:24]}.so"
 
 
-def _start(source: str, so: Path) -> subprocess.Popen:
+def kernel_library_path(name: str) -> Path:
+    """Where the library of the hand-written kernel ``name`` lives (built
+    or not): the name hashes ``csrc/kernels/<name>.cu``, the flags and the
+    runtime tag."""
+    h = hashlib.sha256()
+    h.update(runtime_tag().encode())
+    h.update(b"\0")
+    h.update((KERNEL_DIR / f"{name}.cu").read_bytes())
+    h.update(b"\0")
+    h.update(" ".join(KERNEL_NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:24]}.so"
+
+
+def _start(source: str, so: Path, flags: Sequence[str]) -> subprocess.Popen:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = so.with_suffix(".cu")
     cu.write_text(source)
     fd, tmp = tempfile.mkstemp(dir=str(BUILD_DIR), suffix=".so.tmp")
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(cu)]
+    cmd = [nvcc_path(), *flags, "-I", str(CSRC), "-o", tmp, str(cu)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.het_tmp = tmp       # type: ignore[attr-defined]
@@ -85,24 +115,38 @@ def _finish(proc: subprocess.Popen) -> None:
 
 
 def build_many(sources: Sequence[str]) -> Dict[str, object]:
-    """Build every source not built yet, one ``nvcc`` process per CPU core
-    at a time.  Returns ``{"paths": [...], "built": n,
-    "seconds": wall time}``; raises on the first failed build."""
+    """Build every generated segment source not built yet.  Returns
+    ``{"paths": [...], "built": n, "seconds": wall time}``; raises on the
+    first failed build."""
+    return _build([(s, library_path(s), NVCC_FLAGS) for s in sources])
+
+
+def build_kernels(names: Sequence[str]) -> Dict[str, object]:
+    """Build the hand-written kernels ``csrc/kernels/<name>.cu`` not built
+    yet; returns what :func:`build_many` returns."""
+    return _build([((KERNEL_DIR / f"{n}.cu").read_text(),
+                    kernel_library_path(n), KERNEL_NVCC_FLAGS)
+                   for n in names])
+
+
+def _build(jobs_in: Sequence[tuple]) -> Dict[str, object]:
+    """Run ``nvcc`` for every ``(source, library path, flags)`` whose
+    library is missing, one process per CPU core at a time."""
     t0 = time.perf_counter()
-    paths: List[Path] = [library_path(s) for s in sources]
+    paths: List[Path] = [so for _, so, _ in jobs_in]
     todo = []
     seen = set()
-    for src, so in zip(sources, paths):
+    for src, so, flags in jobs_in:
         if not so.exists() and so not in seen:
             seen.add(so)
-            todo.append((src, so))
+            todo.append((src, so, flags))
     jobs = os.cpu_count() or 1
     running: List[subprocess.Popen] = []
     try:
-        for src, so in todo:
+        for src, so, flags in todo:
             if len(running) >= jobs:
                 _finish(running.pop(0))
-            running.append(_start(src, so))
+            running.append(_start(src, so, flags))
         while running:
             _finish(running.pop(0))
     finally:

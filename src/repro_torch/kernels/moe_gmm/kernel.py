@@ -1,0 +1,71 @@
+"""Grouped (per-expert) matmul kernel — the MoE expert GEMM.
+
+``x [E, C, D] @ w [E, D, F] -> [E, C, F]`` with a row-count vector
+``counts [E]``: row tiles of ``bc`` rows that hold no live row (the first
+row at or past ``counts[e]``) skip the product and stay zero (capacity
+buckets are padded; dispatch guarantees rows >= counts are zero).
+
+Port of ``src/repro/kernels/moe_gmm/kernel.py`` (``moe_gmm_fwd``).  The
+CUDA kernel (``csrc/kernels/moe_gmm.cu``) is a shared-memory tiled GEMM, one
+block per (expert, 64-row tile, 64-column tile) looping over ``D``; the
+block reads ``counts[e]`` itself and computes exactly the rows of the live
+``bc``-row tiles, so it gives what the Pallas kernel gives for any ``bc``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _cuda
+
+
+def moe_gmm_plain(x, w, counts, *, bc: int = 128, bf: int = 128,
+                  bd: int = 128):
+    """The Pallas body in eager torch, experts side by side: for every
+    (row tile, column tile) an f32 accumulator summed over ``bd``-wide
+    contraction tiles, zero for the experts whose tile holds no live
+    row."""
+    E, C, D = x.shape
+    F = w.shape[-1]
+    bc, bf, bd = min(bc, C), min(bf, F), min(bd, D)
+    counts = counts.to(x.device)
+    out = torch.zeros((E, C, F), dtype=x.dtype, device=x.device)
+    for c0 in range(0, C, bc):
+        live = (c0 < counts)[:, None, None]
+        for f0 in range(0, F, bf):
+            acc = torch.zeros((E, min(bc, C - c0), min(bf, F - f0)),
+                              dtype=torch.float32, device=x.device)
+            for d0 in range(0, D, bd):
+                acc += torch.bmm(x[:, c0:c0 + bc, d0:d0 + bd].float(),
+                                 w[:, d0:d0 + bd, f0:f0 + bf].float())
+            out[:, c0:c0 + bc, f0:f0 + bf] = torch.where(
+                live, acc, torch.zeros_like(acc)).to(x.dtype)
+    return out
+
+
+def moe_gmm_fwd(x, w, counts, *, bc: int = 128, bf: int = 128,
+                bd: int = 128):
+    """x: [E,C,D]; w: [E,D,F] (f32 or bf16, one type); counts: [E] int32.
+    Returns [E,C,F] in the input type.  On the card ``bf`` and ``bd`` (the
+    Pallas output and contraction tiles) do not change the result and are
+    not used; ``bc`` decides which rows are live."""
+    if not _cuda.on_cuda(x, w, counts):
+        return moe_gmm_plain(x, w, counts, bc=bc, bf=bf, bd=bd)
+    E, C, D = x.shape
+    F = w.shape[-1]
+    _cuda.require(x, "x", _cuda.FLOATS, (E, C, D))
+    _cuda.require(w, "w", (x.dtype,), (E, D, F))
+    _cuda.require(counts, "counts", (torch.int32,), (E,))
+    if bc < 1:
+        raise ValueError(f"bc={bc}: the row tile needs at least one row")
+    out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    P, I = _cuda.P, _cuda.I
+    _cuda.launch("moe_gmm", [P, P, P, P, I, I, I, I, I, I], x.device,
+                 x.data_ptr(), w.data_ptr(), counts.data_ptr(),
+                 out.data_ptr(), E, C, D, F, min(bc, C),
+                 _cuda.DTYPE_CODE[x.dtype])
+    moe_gmm_fwd.launches += 1
+    return out
+
+
+#: kernel launches (the plain version launches nothing)
+moe_gmm_fwd.launches = 0
