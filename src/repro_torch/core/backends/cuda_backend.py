@@ -735,7 +735,8 @@ class CudaBackend(Backend):
             if fp not in self._modules and fp not in {f for f, _, _ in todo}:
                 src, kernels = emit_module(prog)
                 todo.append((fp, src, kernels))
-        res = nvcc_build.build_many([src for _, src, _ in todo])
+        res = nvcc_build.build([nvcc_build.segment_job(src)
+                                 for _, src, _ in todo])
         for (fp, _, kernels), path in zip(todo, res["paths"]):
             self._modules[fp] = _Module(path, kernels)
         return res

@@ -1,20 +1,20 @@
 """Build helper for CUDA sources: ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``.
 
-Two kinds of source build here:
+Two kinds of source build here, each a job of :func:`build`:
 
 * the segment kernels the CUDA backend generates from hetIR, over the
-  device-runtime header ``csrc/hetir_rt.cuh`` (:func:`build_many`), with
+  device-runtime header ``csrc/hetir_rt.cuh`` (:func:`segment_job`), with
   hetIR's one-rounding-per-op flags (:data:`NVCC_FLAGS`);
 * the hand-written kernels of :mod:`repro_torch.kernels`, one fixed file
-  ``csrc/kernels/<name>.cu`` each (:func:`build_kernels`), with
+  ``csrc/kernels/<name>.cu`` each (:func:`kernel_job`), with
   :data:`KERNEL_NVCC_FLAGS`.
 
 Every library lands in ``build/repro_torch/`` at the root of the checkout,
-named by a hash of its source (and, for generated sources, the header), the
-compiler flags and the runtime tag — so a second process (or a second
-launch of the same program) finds the library and skips ``nvcc``.  Several
-sources build concurrently, one ``nvcc`` process each.
+named by a hash of its source, the header, the compiler flags and the
+runtime tag — so a second process (or a second launch of the same program)
+finds the library and skips ``nvcc``.  One :func:`build` call runs one
+``nvcc`` per missing library, as many at once as there are CPU cores.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 from ..cache import runtime_tag
 
@@ -60,10 +60,12 @@ def nvcc_path() -> str:
                        "kernels with the CUDA toolkit's nvcc")
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from ``source`` lives (built or not): the
-    name hashes the source, the header, the flags and the runtime tag
-    (torch and CUDA versions, device capability)."""
+def library_path(source: str, flags: Sequence[str] = NVCC_FLAGS,
+                 prefix: str = "het") -> Path:
+    """Where the library built from ``source`` with ``flags`` lives (built
+    or not): ``<prefix>_<hash>.so``, the hash over the source, the header,
+    the flags and the runtime tag (torch and CUDA versions, device
+    capability)."""
     h = hashlib.sha256()
     h.update(runtime_tag().encode())
     h.update(b"\0")
@@ -71,21 +73,21 @@ def library_path(source: str) -> Path:
     h.update(b"\0")
     h.update(HEADER.read_bytes())
     h.update(b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"het_{h.hexdigest()[:24]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{prefix}_{h.hexdigest()[:24]}.so"
 
 
-def kernel_library_path(name: str) -> Path:
-    """Where the library of the hand-written kernel ``name`` lives (built
-    or not): the name hashes ``csrc/kernels/<name>.cu``, the flags and the
-    runtime tag."""
-    h = hashlib.sha256()
-    h.update(runtime_tag().encode())
-    h.update(b"\0")
-    h.update((KERNEL_DIR / f"{name}.cu").read_bytes())
-    h.update(b"\0")
-    h.update(" ".join(KERNEL_NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}_{h.hexdigest()[:24]}.so"
+def segment_job(source: str) -> Tuple[str, Path, Sequence[str]]:
+    """The :func:`build` job of a generated segment source."""
+    return source, library_path(source), NVCC_FLAGS
+
+
+def kernel_job(name: str) -> Tuple[str, Path, Sequence[str]]:
+    """The :func:`build` job of the hand-written kernel
+    ``csrc/kernels/<name>.cu``."""
+    source = (KERNEL_DIR / f"{name}.cu").read_text()
+    return (source, library_path(source, KERNEL_NVCC_FLAGS, name),
+            KERNEL_NVCC_FLAGS)
 
 
 def _start(source: str, so: Path, flags: Sequence[str]) -> subprocess.Popen:
@@ -114,24 +116,11 @@ def _finish(proc: subprocess.Popen) -> None:
     os.replace(proc.het_tmp, proc.het_so)   # atomic publish
 
 
-def build_many(sources: Sequence[str]) -> Dict[str, object]:
-    """Build every generated segment source not built yet.  Returns
-    ``{"paths": [...], "built": n, "seconds": wall time}``; raises on the
-    first failed build."""
-    return _build([(s, library_path(s), NVCC_FLAGS) for s in sources])
-
-
-def build_kernels(names: Sequence[str]) -> Dict[str, object]:
-    """Build the hand-written kernels ``csrc/kernels/<name>.cu`` not built
-    yet; returns what :func:`build_many` returns."""
-    return _build([((KERNEL_DIR / f"{n}.cu").read_text(),
-                    kernel_library_path(n), KERNEL_NVCC_FLAGS)
-                   for n in names])
-
-
-def _build(jobs_in: Sequence[tuple]) -> Dict[str, object]:
-    """Run ``nvcc`` for every ``(source, library path, flags)`` whose
-    library is missing, one process per CPU core at a time."""
+def build(jobs_in: Sequence[tuple]) -> Dict[str, object]:
+    """Run ``nvcc`` for every job ``(source, library path, flags)`` whose
+    library is missing, one process per CPU core at a time.  Returns
+    ``{"paths": [...], "built": n, "seconds": wall time}``, a path per job;
+    raises on the first failed build."""
     t0 = time.perf_counter()
     paths: List[Path] = [so for _, so, _ in jobs_in]
     todo = []

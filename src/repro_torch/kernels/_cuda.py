@@ -3,7 +3,7 @@
 Each kernel is one self-contained CUDA C++ file ``csrc/kernels/<name>.cu``
 with an ``extern "C"`` launcher that returns ``cudaGetLastError()``.  The
 library is built by ``nvcc`` for ``sm_90a`` at first use
-(:func:`~repro_torch.core.backends.nvcc_build.build_kernels`, hash-named in
+(:func:`~repro_torch.core.backends.nvcc_build.kernel_job`, hash-named in
 ``build/repro_torch/``) and loaded with ``ctypes``.  A wrapper takes the
 route from its tensors' device: CPU tensors go through the plain PyTorch
 version, CUDA tensors launch the kernel or raise — nothing falls back.
@@ -28,18 +28,12 @@ P, I, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FNS: Dict[str, object] = {}
 
 
-def prebuild() -> Dict[str, object]:
-    """Build every kernel's library now (one ``nvcc`` each, all at once)
-    instead of at its first launch."""
-    return nvcc_build.build_kernels(KERNELS)
-
-
 def _launcher(name: str, argtypes: Sequence) -> object:
     """``launch_<name>`` of kernel ``name``'s library, built and loaded at
     the first call; its last argument is the stream."""
     fn = _FNS.get(name)
     if fn is None:
-        path = nvcc_build.build_kernels([name])["paths"][0]
+        path = nvcc_build.build([nvcc_build.kernel_job(name)])["paths"][0]
         fn = getattr(ctypes.CDLL(str(path)), f"launch_{name}")
         fn.argtypes = [*argtypes, P]
         fn.restype = ctypes.c_int

@@ -311,16 +311,16 @@ def test_kernel_library_hash_covers_source_and_flags(tmp_path, monkeypatch):
     monkeypatch.setattr(nvcc_build, "KERNEL_DIR", tmp_path)
     cu = tmp_path / "k.cu"
     cu.write_text("// one\n")
-    first = nvcc_build.kernel_library_path("k")
+    first = nvcc_build.kernel_job("k")[1]
     assert first.parent == nvcc_build.BUILD_DIR
     assert first.name.startswith("k_") and first.suffix == ".so"
-    assert nvcc_build.kernel_library_path("k") == first
+    assert nvcc_build.kernel_job("k")[1] == first
     cu.write_text("// two\n")
-    second = nvcc_build.kernel_library_path("k")
+    second = nvcc_build.kernel_job("k")[1]
     assert second != first
     monkeypatch.setattr(nvcc_build, "KERNEL_NVCC_FLAGS",
                         nvcc_build.KERNEL_NVCC_FLAGS + ("-lineinfo",))
-    assert nvcc_build.kernel_library_path("k") != second
+    assert nvcc_build.kernel_job("k")[1] != second
 
 
 def test_kernel_flags_keep_ieee_and_hopper():
