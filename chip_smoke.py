@@ -12,7 +12,7 @@ card) and against the NumPy oracles:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the ``nvcc`` build of every segment library used below (one ``nvcc``
-   per optimized program) and of the four hand-written kernels of
+   per optimized program) and of the five hand-written kernels of
    ``repro_torch.kernels`` (one ``nvcc`` per source), in one batch that
    runs one ``nvcc`` per CPU core at a time;
 1. all 17 suite and 4 zoo kernels at their canonical launch, at O0 and
@@ -29,7 +29,9 @@ card) and against the NumPy oracles:
    bits equal to the zoo oracle and to the plain version; then a second
    launch paused after 3 segments, checkpointed, restored in a CPU
    ``vectorized`` session, advanced 2 segments there, migrated back to the
-   card and finished — bits unchanged;
+   card and finished — bits unchanged; the step must have run a segment
+   kernel that staged its K tile in shared memory and one that folded
+   ``REDUCE_MAX`` by a shuffle tree (``CudaBackend.scalar_paths``);
 3. full width, block path: ``vadd`` over 2^24 elements;
 4. times: one launch of 2 and of 3 (median over warm launches, CUDA
    events), the device time of its segment kernels alone, their plain
@@ -41,8 +43,9 @@ card) and against the NumPy oracles:
 5. the kernel library (``repro_torch.kernels``) at full width, through
    its user entry points (the ``autograd.Function`` ops): flash attention
    at Llama 3.2 3B's prefill (24 heads of 128 over 4096 tokens, causal,
-   bf16 and f32) and recurrentgemma-2b's local attention (10 heads of 256,
-   window 2048, bf16 and f32); the MoE grouped matmul at granite-moe-3b-a800m's
+   bf16 on the wgmma/TMA kernel and f32 on the CUDA-core one, each with
+   its own launch count) and recurrentgemma-2b's local attention (10
+   heads of 256, window 2048, bf16 and f32); the MoE grouped matmul at granite-moe-3b-a800m's
    experts (40 x 1024 rows x 1536 -> 512, bf16, seeded counts with an
    empty and a full expert); the RG-LRU scan at recurrentgemma-2b's width
    (4096 steps x 2560 channels, bf16); the mLSTM chunk kernel at
@@ -163,6 +166,7 @@ BF16_ATTN_TOL = (1e-3, 2.0 ** -7)
 #: the TPU kernel each library kernel replaces (its Pallas wrapper)
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:98",
+    "flash_attention_sm90": "src/repro/kernels/flash_attention/kernel.py:98",
     "moe_gmm": "src/repro/kernels/moe_gmm/kernel.py:47",
     "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:54",
     "mlstm_chunk": "src/repro/kernels/mlstm_chunk/kernel.py:79",
@@ -245,34 +249,40 @@ def time_ms(fn, reps: int) -> float:
 def kernel_device_ms(backend, go) -> tuple:
     """Device time of the segment kernels one call of ``go()`` launches —
     CUDA events recorded on the stream right before and after each kernel
-    launch call — and their number.  The rest of a launch's time is host
-    work the device waits for."""
+    launch call — their number, and ``{(segment, mode): [ms, launches]}``.
+    The rest of a launch's time is host work the device waits for."""
     import torch
     events = []
     wrapped = []
 
-    def timing(fn):
+    def timing(key, fn):
         def timed(*args):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             err = fn(*args)
             end.record()
-            events.append((start, end))
+            events.append((key, start, end))
             return err
         return timed
 
     for mod in backend._modules.values():
         for key, fn in list(mod.fns.items()):
             wrapped.append((mod, key, fn))
-            mod.fns[key] = timing(fn)
+            mod.fns[key] = timing(key, fn)
     try:
         go()
     finally:
         for mod, key, fn in wrapped:
             mod.fns[key] = fn
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in events), len(events)
+    per = {}
+    for key, a, b in events:
+        ms = a.elapsed_time(b)
+        per.setdefault(key, [0.0, 0])
+        per[key][0] += ms
+        per[key][1] += 1
+    return sum(ms for ms, _ in per.values()), len(events), per
 
 
 def profile_launch(go) -> dict:
@@ -425,8 +435,10 @@ def library_cases(dev) -> list:
                         lambda w=window + dw: attention_ref(
                             q, k, v, causal=True, window=w))
                        for what, dw in (("short", -1), ("long", 1))]
+        # bf16 runs on the wgmma/TMA kernel, f32 on the CUDA-core one
         cases.append(LibCase(
-            "flash_attention", label,
+            "flash_attention_sm90" if q.dtype == bf16 else "flash_attention",
+            label,
             lambda: flash_attention(q, k, v, True, window),
             lambda: fa.flash_attention_fwd(q, k, v, causal=True,
                                            window=window),
@@ -659,11 +671,11 @@ def main() -> int:
             Engine(prog, builder, grid, block, args, opt_level=0).program)
     # one batch: an nvcc per generated source and per hand-written kernel
     jobs = [nvcc_build.segment_job(emit_module(p)[0]) for p in optimized]
-    jobs += [nvcc_build.kernel_job(n) for n in kernel_lib.KERNELS]
+    jobs += [nvcc_build.kernel_job(n) for n in kernel_lib.SOURCES]
     built = nvcc_build.build(jobs)
     print(f"# nvcc: {built['built']} libraries built in "
           f"{built['seconds']:.1f} s for {len(optimized)} optimized programs "
-          f"and the {len(kernel_lib.KERNELS)} hand-written kernels (one "
+          f"and the {len(kernel_lib.SOURCES)} hand-written kernels (one "
           "nvcc per source, one per CPU core at a time)")
 
     # -- phase 1: every kernel against its plain version and the oracle ---------
@@ -712,12 +724,16 @@ def main() -> int:
     main_backends = (gpu.backend, vgpu.backend)
     for b in main_backends:
         b.launches.update(scalar=0, block=0)
+        b.scalar_paths.update(staged=0, tree_fold=0)
 
     rec, out = run_launch(gpu, attn_prog, ATTN_H, ATTN_T, attn_args, ("O",))
     torch.cuda.synchronize()
     check(same_bits(out["O"], attn_want),
           "attn_decode full width: kernel != zoo oracle bits")
-    step_launches = dict(gpu.backend.launches)
+    step_launches = dict(gpu.backend.launches, **gpu.backend.scalar_paths)
+    check(step_launches["staged"] > 0 and step_launches["tree_fold"] > 0,
+          "attn_decode step: no segment kernel staged its K tile or folded "
+          f"REDUCE_MAX by a shuffle tree: {step_launches}")
     segs_per_step = rec.engine.executed_ops and len(
         [t for t in gpu.sched_trace if t["seq"] == rec.seq])
 
@@ -745,8 +761,9 @@ def main() -> int:
     torch.cuda.synchronize()
     check(same_bits(vout["C"], vadd_want),
           "vadd 2^24: kernel != oracle bits")
-    launches = {k: sum(b.launches[k] for b in main_backends)
-                for k in ("scalar", "block")}
+    launches = {k: sum(dict(b.launches, **b.scalar_paths)[k]
+                       for b in main_backends)
+                for k in ("scalar", "block", "staged", "tree_fold")}
     check(launches["scalar"] > 0 and launches["block"] > 0,
           f"main path missed a kernel: launches {launches}")
     print("phase 2: attn_decode H=24 D=128 window 4096: bits equal to the "
@@ -776,15 +793,21 @@ def main() -> int:
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
     torch.backends.cuda.matmul.allow_tf32 = False   # the oracles in IEEE f32
     torch.backends.cudnn.allow_tf32 = False
-    wrappers = {"flash_attention": flash_attention_fwd, "moe_gmm": moe_gmm_fwd,
-                "rglru_scan": rglru_scan_fwd, "mlstm_chunk": mlstm_chunk_fwd}
+    # each kernel's launch count: (wrapper, attribute)
+    counters = {"flash_attention": (flash_attention_fwd, "launches"),
+                "flash_attention_sm90": (flash_attention_fwd,
+                                         "sm90_launches"),
+                "moe_gmm": (moe_gmm_fwd, "launches"),
+                "rglru_scan": (rglru_scan_fwd, "launches"),
+                "mlstm_chunk": (mlstm_chunk_fwd, "launches")}
     cases = library_cases(dev)
-    for fn in wrappers.values():
-        fn.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     for c in cases:
         c.out = c.op()
     torch.cuda.synchronize()
-    lib_launches = {n: fn.launches for n, fn in wrappers.items()}
+    lib_launches = {n: getattr(fn, attr)
+                    for n, (fn, attr) in counters.items()}
     check(all(v > 0 for v in lib_launches.values()),
           f"phase 5 main path missed a kernel: launches {lib_launches}")
     for c in cases:
@@ -822,13 +845,13 @@ def main() -> int:
 
     attn_go = launcher(gpu, attn_prog, ATTN_H, ATTN_T, attn_args)
     attn_ms = time_ms(attn_go, 5)
-    attn_dev_ms, attn_nk = kernel_device_ms(gpu.backend, attn_go)
+    attn_dev_ms, attn_nk, attn_per = kernel_device_ms(gpu.backend, attn_go)
     attn_plain_ms = time_ms(launcher(plain, attn_prog, ATTN_H, ATTN_T,
                                      attn_args), 2)
     vadd_go = launcher(vgpu, vadd_prog, VADD_N // VADD_BLOCK, VADD_BLOCK,
                        vadd_args)
     vadd_ms = time_ms(vadd_go, 20)
-    vadd_dev_ms, vadd_nk = kernel_device_ms(vgpu.backend, vadd_go)
+    vadd_dev_ms, vadd_nk, _ = kernel_device_ms(vgpu.backend, vadd_go)
     vadd_plain_ms = time_ms(launcher(plain, vadd_prog, VADD_N // VADD_BLOCK,
                                      VADD_BLOCK, vadd_args), 5)
 
@@ -856,6 +879,13 @@ def main() -> int:
           f"= {attn_bytes} B / 3.35 TB/s) on {smi}")
     print(f"# attn_decode step: {attn_nk} segment kernels take "
           f"{attn_dev_ms:.4f} ms of device time; the rest is host work")
+    # the two tile kernels (one launch per kv tile each) against the rest
+    tiles = sorted(attn_per.items(), key=lambda kv: -kv[1][1])[:2]
+    for (seg, mode), (ms, n) in sorted(tiles):
+        print(f"#   segment {seg} ({mode}): {n} launches, {ms:.4f} ms")
+    rest = attn_dev_ms - sum(ms for _, (ms, _) in tiles)
+    print(f"#   the other {attn_nk - sum(n for _, (_, n) in tiles)} "
+          f"launches: {rest:.4f} ms")
     print(f"# vadd 2^24: {vadd_ms:.4f} ms (plain {vadd_plain_ms:.4f} ms, "
           f"torch.add {vadd_lib_ms:.4f} ms, bound {vadd_bound_ms:.4f} ms "
           f"= {vadd_bytes} B / 3.35 TB/s) on {smi}")
@@ -867,7 +897,10 @@ def main() -> int:
     kernels = [
         {"name": "hetir_segment_scalar", "route": "cuda", "source": src,
          "replaces": "src/repro/core/backends/pallas_backend.py:120",
-         "launches": launches["scalar"], "max_abs_err": attn_err,
+         "launches": launches["scalar"],
+         "staged_launches": launches["staged"],
+         "tree_fold_launches": launches["tree_fold"],
+         "max_abs_err": attn_err,
          "ms": attn_dev_ms, "launch_ms": attn_ms,
          "plain_ms": attn_plain_ms,
          "bound_ms": attn_bound_ms, "bound_by": "bytes",

@@ -23,21 +23,26 @@ all control flow is uniform and ``__syncthreads()`` may stand around every
 store, atomic and collective — which is what reproduces the reference
 interpreter's lock-step order (every lane finishes an op before the next
 op starts).  Stores of one op that may hit one address, ``ATOMIC_ADD`` and
-the float folds of ``REDUCE_ADD``/``SCAN_ADD``/``REDUCE_MAX`` are applied
-by lane 0 in lane order from a scratch area, so the highest lane wins and
-every rounding happens in the interpreter's order.  A segment whose blocks
-can see each other's global traffic (``semantics.serial_segment``) runs
-as one CUDA block that walks ``b = 0..B-1`` in order.
+the float folds of ``REDUCE_ADD``/``SCAN_ADD`` are applied by lane 0 in
+lane order from a scratch area, so the highest lane wins and every
+rounding happens in the interpreter's order; ``REDUCE_MAX`` is a
+warp-shuffle tree whose ties resolve as that fold's (``het_block_max``).
+A segment whose blocks can see each other's global traffic
+(``semantics.serial_segment``) runs as one CUDA block that walks ``b =
+0..B-1`` in order.  Buffers the segment never writes are read through the
+read-only path; a load in a loop of static trip count whose window for one
+hetIR block is known before the loop is staged in shared memory by
+``cp.async`` (:mod:`~repro_torch.core.staging` decides, here at
+translation); static-trip loops are unrolled by 8.
 
 Block kernel: ``N / BLOCK`` CUDA blocks of ``BLOCK`` threads (``BLOCK`` from
 ``passes.choose_block``), lane = flat global id; no shared memory, no
 barriers.
 
 Bound on this card: the segment kernels of the decode path are latency- and
-launch-bound (tens of short segments per launch, lane-0 folds between
-barriers); the block kernel of an elementwise segment is bound by device
-memory bandwidth.  A simple kernel that is right comes first here; the
-numbers are in PERF.md.
+launch-bound (tens of short segments per launch, folds between barriers,
+one CUDA block per hetIR block); the block kernel of an elementwise
+segment is bound by device memory bandwidth.  The numbers are in PERF.md.
 
 On a tensor that lies on the CPU the backend runs the plain version
 (:func:`~repro_torch.core.backends.semantics.run_segment_plain`); on CUDA
@@ -57,6 +62,8 @@ from ..cache import TranslationCache
 from ..passes import (_THREAD_BASES, _decompose, _uniform_regs, block_lower,
                       choose_block, refusal_category)
 from ..segments import LoopStart, SegNode, segment_program
+from ..staging import (STAGE_BUDGET_BYTES, plan_staging, segment_prelude,
+                       stage_layout, stage_words, staged_loads)
 from . import nvcc_build
 from .base import Backend, HostState, Launch, torch_dtype
 from .semantics import (operand_dtype, run_segment_plain, segment_reg_dtypes,
@@ -213,17 +220,32 @@ class _SegmentEmitter:
         self.depth = 2
         self.n_masks = 0
         self.scratch = False
+        self.tree_folds = 0
         stmts = seg.stmts
-        self._affine = affine_env(stmts)
-        self._defs = ir.reg_def_counts(stmts)
-        self._uniform = _uniform_regs(stmts)
+        # the segment's index arithmetic, seeing through the lane-id chains
+        # of earlier segments (staging.segment_prelude; not emitted)
+        body = segment_prelude(stmts, prog) + list(stmts)
+        self._affine = affine_env(body)
+        self._defs = ir.reg_def_counts(body)
+        self._uniform = _uniform_regs(body)
         self._kinds = {op.dest.name: _THREAD_BASES[op.opcode]
-                       for op in ir.walk_ops(stmts)
+                       for op in ir.walk_ops(body)
                        if op.dest is not None and op.opcode in _THREAD_BASES
                        and self._defs.get(op.dest.name, 0) == 1}
-        # registers every lane writes: defined at the segment's top level
-        self._top = {s.dest.name for s in stmts
+        # registers every lane writes: defined at the segment's top level,
+        # or by a replayed top-level chain of the program
+        self._top = {s.dest.name for s in body
                      if isinstance(s, ir.Op) and s.dest is not None}
+        # loads staged in shared memory (scalar kernels): load j by op,
+        # and the loads staged ahead of each loop nest, by its loop var
+        self.staged = staged_loads(plan_staging(stmts, prog, seg.gwrites)) \
+            if mode == "s" else []
+        ops = list(ir.walk_ops(stmts))
+        self._stage_of = {id(ops[ld.op]): j
+                          for j, ld in enumerate(self.staged)}
+        self._stage_at: Dict[str, List[int]] = {}
+        for j, ld in enumerate(self.staged):
+            self._stage_at.setdefault(ld.nest, []).append(j)
 
     # -- helpers -----------------------------------------------------------
     def out(self, line: str) -> None:
@@ -271,6 +293,27 @@ class _SegmentEmitter:
             raise AssertionError(f"{what} in a block-lowered segment")
         self.scratch = True
 
+    def stage(self, j: int) -> None:
+        """Copy staged load ``j``'s window into shared memory (all threads;
+        thread 0 computes where the window starts from its registers)."""
+        ld = self.staged[j]
+        k = self.slots.buf_slot[ld.buf]
+        u = [f"(long long){c} * (long long){self.var[r]}"
+             for r, c in ld.uniform]
+        if ld.block:
+            u.append(f"(long long){ld.block} * b")
+        if ld.gid_block:
+            u.append(f"(long long){ld.gid_block} * ((long long)b * T)")
+        u.append(f"({ld.const}ll)")
+        lo, hi = ld.offsets(1)
+        self.out("__syncthreads();")
+        self.out(f"if (t == 0) het_stage_window({' + '.join(u)}, {lo}ll, "
+                 f"{hi}ll, {ld.lane}ll, T, son{j}, stw + {2 * j});")
+        self.out("__syncthreads();")
+        self.out(f"sw{j} = stw[{2 * j}]; sl{j} = stw[{2 * j + 1}];")
+        self.out(f"het_stage_copy<{ld.row()}>(st{j}, sw{j}, sl{j}, g{k}, "
+                 f"n{k}, t, T);")
+
     # -- statements ----------------------------------------------------------
     def stmts(self, body: Sequence[ir.Stmt], m: Optional[str]) -> None:
         for s in body:
@@ -292,6 +335,15 @@ class _SegmentEmitter:
                     else f"((int)a.sc[{self.slots.count_slot[s.count]}])"
                 self.n_masks += 1
                 it = f"it{self.n_masks}"
+                for j in self._stage_at.get(s.var.name, ()):
+                    self.stage(j)
+                if self._stage_at.get(s.var.name):
+                    self.out("het_stage_wait();")
+                    self.out("__syncthreads();")
+                if isinstance(s.count, int):
+                    # independent loads issue ahead of the dependent chain;
+                    # no float operation is reordered
+                    self.out("#pragma unroll 8")
                 self.out(f"for (int {it} = 0; {it} < {count}; ++{it}) {{")
                 self.depth += 1
                 self.write(s.var, it, ir.I32, m)
@@ -351,8 +403,14 @@ class _SegmentEmitter:
         elif oc in (ir.LD_GLOBAL, ir.BLOCK_LD):
             k = self.slots.buf_slot[op.args[0]]
             bdt = self.prog.param(op.args[0]).dtype
-            self.write(d, f"het_ld(g{k}, n{k}, {self.idx(op.args[1])})",
-                       bdt, m)
+            j = self._stage_of.get(id(op))
+            if j is not None:
+                expr = (f"het_stage_ld<{self.staged[j].row()}>(st{j}, sw{j}, "
+                        f"sl{j}, g{k}, n{k}, {self.idx(op.args[1])})")
+            else:
+                ld = "het_ld" if op.args[0] in self.seg.gwrites else "het_ldg"
+                expr = f"{ld}(g{k}, n{k}, {self.idx(op.args[1])})"
+            self.write(d, expr, bdt, m)
         elif oc in (ir.ST_GLOBAL, ir.BLOCK_ST):
             k = self.slots.buf_slot[op.args[0]]
             bdt = self.prog.param(op.args[0]).dtype
@@ -462,44 +520,54 @@ class _SegmentEmitter:
             self.out("}")
             self.sync()
             return
-        if oc == ir.REDUCE_ADD:
-            dt = d.dtype
-        else:
-            dt = operand_dtype(op)
+        dt = d.dtype if oc == ir.REDUCE_ADD else operand_dtype(op)
+        if dt not in (ir.F32, ir.I32, ir.U32):
+            raise NotImplementedError(f"{oc} on {dt}")
         ct, sfx = _CT[dt], _SFX[dt]
+        val = self.val(op.args[0], dt)
         self.sync()
-        self.out(f"scr_a[t] = {act}; "
-                 f"scr_v[t] = het_bits({self.val(op.args[0], dt)});")
-        self.sync()
-        v_l = f"het_{sfx}(scr_v[l])"
-        if oc == ir.REDUCE_ADD:
+        if oc == ir.REDUCE_MAX:
+            # a shuffle tree whose ties resolve as the lane-order fold's
+            self.n_masks += 1
+            x = f"x{self.n_masks}"
+            self.out(f"const {ct} {x} = het_block_max<{ct}>({act}, {val}, t, "
+                     "T, scr_a, scr_v, scr_r);")
+            self.tree_folds += 1
+            self.write(d, x, dt, m)
+        elif oc in (ir.REDUCE_ADD, ir.SCAN_ADD):
             # from the zero of the destination dtype, in lane order
-            self.out(f"if (t == 0) {{ {ct} acc_ = {_const(0, dt)}; "
-                     "for (int l = 0; l < T; ++l) if (scr_a[l]) "
-                     f"acc_ = {_binop(ir.ADD, 'acc_', v_l, dt)}; "
-                     "scr_r[0] = het_bits(acc_); }")
-            self.sync()
-            self.write(d, f"het_{sfx}(scr_r[0])", dt, m)
-        elif oc == ir.REDUCE_MAX:
-            self.out(f"if (t == 0) {{ {ct} acc_ = {_const(0, dt)}; "
-                     "bool have_ = false; for (int l = 0; l < T; ++l) "
-                     f"if (scr_a[l]) {{ acc_ = have_ ? "
-                     f"{_binop(ir.MAX, 'acc_', v_l, dt)} : {v_l}; "
-                     "have_ = true; } scr_r[0] = het_bits(acc_); }")
-            self.sync()
-            self.write(d, f"het_{sfx}(scr_r[0])", dt, m)
-        elif oc == ir.SCAN_ADD:
-            self.out(f"if (t == 0) {{ {ct} acc_ = {_const(0, dt)}; "
-                     "for (int l = 0; l < T; ++l) if (scr_a[l]) { "
-                     f"acc_ = {_binop(ir.ADD, 'acc_', v_l, dt)}; "
-                     "scr_o[l] = het_bits(acc_); } }")
-            self.sync()
-            self.write(d, f"het_{sfx}(scr_o[t])", dt, m)
+            scan = "true" if oc == ir.SCAN_ADD else "false"
+            self.out(f"het_block_add<{ct}, {scan}>({act}, {val}, t, T, scr_a, "
+                     "scr_v, scr_o, scr_r);")
+            res = "scr_o[t]" if oc == ir.SCAN_ADD else "scr_r[0]"
+            self.write(d, f"het_{sfx}({res})", dt, m)
         else:  # pragma: no cover
             raise NotImplementedError(oc)
         self.sync()
 
-    # -- the kernel ------------------------------------------------------------
+    # -- the kernel ----------------------------------------------------------
+    def stage_head(self) -> None:
+        """Where each staged window lives: after the scratch area, 16-byte
+        aligned, the windows' starts and lengths, then each window that
+        fits the budget at this block size (``staging.stage_layout``)."""
+        sl, prog = self.slots, self.prog
+        words = f"{shared_words(prog, sl)}"
+        if self.scratch:
+            words += " + (T + (T & 1)) + 2 * T + T + T + 2"
+        self.out(f"const long long stb = ({words} + 3) / 4 * 4;")
+        self.out("long long* stw = (long long*)(het_smem + stb);")
+        self.out("long long su_ = 0;")
+        for j, ld in enumerate(self.staged):
+            lo, hi = ld.offsets(1)
+            ct = _CT[prog.param(ld.buf).dtype]
+            self.out(f"const long long sp{j} = het_stage_words({lo}ll, {hi}ll, "
+                     f"{ld.lane}ll, T, {ld.row()}ll);")
+            self.out(f"const bool son{j} = (su_ + sp{j}) * 4 <= "
+                     f"{STAGE_BUDGET_BYTES}ll;")
+            self.out(f"{ct}* st{j} = ({ct}*)(het_smem + stb + "
+                     f"{4 * len(self.staged)} + su_);")
+            self.out(f"if (son{j}) su_ += sp{j};")
+
     def kernel(self, name: str) -> str:
         sl, prog = self.slots, self.prog
         self.stmts(self.seg.stmts, None)
@@ -523,11 +591,15 @@ class _SegmentEmitter:
                 self.out("unsigned* scr_v = scr + het_even(T) + 2 * T;")
                 self.out("unsigned* scr_o = scr_v + T;")
                 self.out("unsigned* scr_r = scr_o + T;")
+            if self.staged:
+                self.stage_head()
         for n in sl.buffers:
             k = sl.buf_slot[n]
             ct = _CT[prog.param(n).dtype]
-            const = "" if n in self.seg.gwrites else "const "
-            self.out(f"{const}{ct}* g{k} = ({const}{ct}*)a.ptr[{k}];")
+            # a buffer the segment never writes: read-only, unaliased
+            const, rs = ("", "") if n in self.seg.gwrites \
+                else ("const ", " __restrict__")
+            self.out(f"{const}{ct}*{rs} g{k} = ({const}{ct}*)a.ptr[{k}];")
             self.out(f"const long long n{k} = a.len[{k}];")
         for n in sl.inputs:
             ct = _CT[sl.reg_dtypes[n]]
@@ -554,6 +626,8 @@ class _SegmentEmitter:
             init = zero if n not in sl.in_slot else \
                 f"i{sl.in_slot[n]} ? i{sl.in_slot[n]}[lane] : {zero}"
             self.out(f"{_CT[dt]} {self.var[n]} = {init};  // %{n}")
+        for j in range(len(self.staged)):
+            self.out(f"long long sw{j} = 0, sl{j} = 0;  // staged window {j}")
         if self.mode == "s" and sl.shared:
             self.out(f"for (int i = t; i < {prog.shared_size}; i += T) "
                      f"sh[i] = shg[(long long)b * {prog.shared_size} + i];")
@@ -585,23 +659,30 @@ def shared_words(prog: ir.Program, slots: SegmentSlots) -> int:
 
 
 def smem_bytes(prog: ir.Program, slots: SegmentSlots, scratch: bool,
-               T: int) -> int:
-    """Dynamic shared memory of a scalar kernel at block size ``T``."""
+               T: int, staged: Sequence = ()) -> int:
+    """Dynamic shared memory of a scalar kernel at block size ``T``: the
+    hetIR shared row, the scratch area, the staged windows."""
     words = shared_words(prog, slots)
     if scratch:
         words += (T + (T & 1)) + 2 * T + T + T + 2
+    if staged:
+        words = -(-words // 4) * 4 + stage_words(staged, T)
     return 4 * words
 
 
 class SegmentKernels:
     """What the translator produced for one segment: its slots, which
-    kernels exist, and whether the scalar kernel needs scratch."""
+    kernels exist, whether the scalar kernel needs scratch, the loads it
+    stages and the number of its shuffle-tree folds."""
 
     def __init__(self, index: int, slots: SegmentSlots, scratch: bool,
-                 has_block: bool, serial: bool):
+                 has_block: bool, serial: bool, staged: Sequence = (),
+                 tree_folds: int = 0):
         self.index = index
         self.slots = slots
         self.scratch = scratch
+        self.staged = list(staged)
+        self.tree_folds = tree_folds
         self.has_block = has_block
         self.serial = serial
 
@@ -670,7 +751,8 @@ def emit_module(prog: ir.Program) -> Tuple[str, Dict[int, SegmentKernels]]:
                          .kernel(f"het_seg{seg.index}_b"))
             parts.append(_launcher(f"het_seg{seg.index}_b"))
         kernels[seg.index] = SegmentKernels(seg.index, slots, em.scratch,
-                                            block, serial_segment(seg))
+                                            block, serial_segment(seg),
+                                            em.staged, em.tree_folds)
         parts.append("")
     return "\n".join(parts), kernels
 
@@ -722,6 +804,9 @@ class CudaBackend(Backend):
         # kernel launches, counted where the launch happens (the plain
         # version on CPU tensors launches nothing)
         self.launches = {"scalar": 0, "block": 0}
+        # of the scalar launches: those that staged a window in shared
+        # memory, and those that ran a shuffle-tree REDUCE_MAX
+        self.scalar_paths = {"staged": 0, "tree_fold": 0}
         self._modules: Dict[str, _Module] = {}
 
     # -- translation -----------------------------------------------------------
@@ -848,7 +933,7 @@ class CudaBackend(Backend):
                     "runs one thread per hetIR lane (see ROADMAP.md)")
             mode, threads = "s", T
             grid = 1 if k.serial else B
-            smem = smem_bytes(prog, sl, k.scratch, T)
+            smem = smem_bytes(prog, sl, k.scratch, T, k.staged)
         err = mod.fns[(seg.index, mode)](ctypes.byref(args), grid, threads,
                                          smem, stream)
         if err != 0:
@@ -856,4 +941,8 @@ class CudaBackend(Backend):
                 f"CUDA launch of segment {seg.index} ({mode}) of "
                 f"{prog.name} failed: cudaError {err}")
         self.launches["block" if mode == "b" else "scalar"] += 1
+        if mode == "s":
+            self.scalar_paths["staged"] += any(
+                on for on, _, _ in stage_layout(k.staged, T))
+            self.scalar_paths["tree_fold"] += k.tree_folds > 0
         state.regs = {**state.regs, **outs}

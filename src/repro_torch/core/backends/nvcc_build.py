@@ -11,15 +11,17 @@ Two kinds of source build here, each a job of :func:`build`:
   :data:`KERNEL_NVCC_FLAGS`.
 
 Every library lands in ``build/repro_torch/`` at the root of the checkout,
-named by a hash of its source, the header, the compiler flags and the
-runtime tag — so a second process (or a second launch of the same program)
-finds the library and skips ``nvcc``.  One :func:`build` call runs one
-``nvcc`` per missing library, as many at once as there are CPU cores.
+named by a hash of its source, the headers of ``csrc/`` it includes, the
+compiler flags and the runtime tag — so a second process (or a second
+launch of the same program) finds the library and skips ``nvcc``.  One
+:func:`build` call runs one ``nvcc`` per missing library, as many at once
+as there are CPU cores.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,9 +31,9 @@ from typing import Dict, List, Sequence, Tuple
 
 from ..cache import runtime_tag
 
-#: ``src/repro_torch/csrc``: the hand-written device runtime header
+#: ``src/repro_torch/csrc``: the device runtime header ``hetir_rt.cuh`` and
+#: the hand-written kernels with their shared header ``kernels/sm90.cuh``
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-HEADER = CSRC / "hetir_rt.cuh"
 #: ``<checkout>/build/repro_torch``
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 
@@ -60,18 +62,36 @@ def nvcc_path() -> str:
                        "kernels with the CUDA toolkit's nvcc")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_headers(source: str) -> List[Path]:
+    """The headers of ``csrc/`` that ``source`` includes with ``#include
+    "..."``, directly or through one another, in first-include order."""
+    found: List[Path] = []
+    todo = [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop()):
+            path = CSRC / name
+            if path.is_file() and path not in found:
+                found.append(path)
+                todo.append(path.read_text())
+    return found
+
+
 def library_path(source: str, flags: Sequence[str] = NVCC_FLAGS,
                  prefix: str = "het") -> Path:
     """Where the library built from ``source`` with ``flags`` lives (built
-    or not): ``<prefix>_<hash>.so``, the hash over the source, the header,
-    the flags and the runtime tag (torch and CUDA versions, device
-    capability)."""
+    or not): ``<prefix>_<hash>.so``, the hash over the source, every header
+    of ``csrc/`` it includes, the flags and the runtime tag (torch and CUDA
+    versions, device capability)."""
     h = hashlib.sha256()
     h.update(runtime_tag().encode())
     h.update(b"\0")
     h.update(source.encode())
-    h.update(b"\0")
-    h.update(HEADER.read_bytes())
+    for path in local_headers(source):
+        h.update(b"\0")
+        h.update(path.read_bytes())
     h.update(b"\0")
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{prefix}_{h.hexdigest()[:24]}.so"

@@ -5,8 +5,10 @@ order differently from the reference interpreter: floor DIV/MOD with a
 zero divisor and ``INT_MIN / -1``, shifts by 32 or more, NumPy's x86
 float -> integer casts of NaN and out-of-range values, NaN-propagating
 MIN/MAX on ``(±0, ±0)``, a float fold of all ``-0.0`` (``+0.0``), folds
-and votes under divergence, and the block-then-lane order of atomics and
-colliding stores.
+and votes under divergence, ``REDUCE_MAX`` ties of ``±0`` and NaN, the
+block-then-lane order of atomics and colliding stores, and a loop whose
+loads the CUDA kernel stages in shared memory reading indices below 0 and
+past the end.
 
 Every builder takes the hetIR module to build with (``ir``, default this
 package's), so the same programs can be built by the JAX package and held
@@ -125,6 +127,63 @@ def divergent_folds_case(ir=_ir):
             ("R", "M", "P", "V"))
 
 
+def reduce_max_ties_case(ir=_ir):
+    """REDUCE_MAX where the maximum is shared: ``+0`` and ``-0`` compare
+    equal and the fold keeps the later lane's, a NaN wins over everything
+    (the first NaN); over every lane and under a predicate, in blocks of
+    48 lanes (one whole warp and a partial one)."""
+    b = ir.Builder("reduce_max_ties", [ir.Ptr("A"), ir.Ptr("M"),
+                                       ir.Ptr("P")])
+    i = b.global_id(0)
+    t = b.thread_id()
+    x = b.load("A", i)
+    b.store("M", i, b.reduce_max(x))
+    with b.when((t % b.const(5)).ne(b.const(3))):
+        b.store("P", i, b.reduce_max(x))
+    rng = np.random.default_rng(11)
+    T = 48
+    zeros = np.where(rng.random(T) < 0.5, -0.0, 0.0).astype(np.float32)
+    neg = zeros.copy()
+    neg[rng.random(T) < 0.5] = -3.0
+    nan = zeros.copy()
+    nan[[7, 30]] = np.nan
+    late = np.full(T, -np.inf, np.float32)
+    late[[41, 42, 43]] = (0.0, -0.0, 0.0)   # lane 43 is off under the mask
+    a = np.concatenate([zeros, neg, nan, late]).astype(np.float32)
+    return (b.done(), 4, T, {"A": a, "M": np.ones(a.size, np.float32),
+                             "P": np.ones(a.size, np.float32)}, ("M", "P"))
+
+
+def staged_window_case(ir=_ir):
+    """A loop of static trip count reading a buffer the segment never
+    writes, at indices affine in the lane and the loop variable — the
+    loads the CUDA kernel stages in shared memory.  One window (lane
+    stride 5) reads negative indices down to ``-n``, which count from the
+    end; the other (lane stride 32: padded rows) reads up to ``n - 1``.
+    Rounded out to 16-byte chunks, the windows reach past both ends of
+    the buffer (``n`` = 603), where staging reads 0 that no lane uses.
+    The block fold at the end keeps the segment on the scalar kernel."""
+    b = ir.Builder("staged_window", [ir.Ptr("A"), ir.Ptr("Out"),
+                                     ir.Ptr("Sum"), ir.Scalar("base")])
+    i = b.global_id(0)
+    t = b.thread_id()
+    blk = b.block_id()
+    base = b.param("base")
+    s = b.var(b.const(0.0, ir.F32), hint="s")
+    with b.loop(8, hint="j") as j:
+        near = base + blk * b.const(40) + t * b.const(5) + j
+        far = t * b.const(32) + j * b.const(3) + b.const(101)
+        b.assign(s, s + b.load("A", near) + b.load("A", far))
+    b.store("Out", i, s)
+    b.store("Sum", i, b.reduce_add(s))
+    rng = np.random.default_rng(13)
+    a = (rng.standard_normal(603) * 10.0 ** rng.integers(-3, 4, 603)) \
+        .astype(np.float32)
+    return (b.done(), 3, 16, {"A": a, "Out": np.zeros(48, np.float32),
+                              "Sum": np.zeros(48, np.float32),
+                              "base": -603}, ("Out", "Sum"))
+
+
 def atomic_order_case(ir=_ir):
     """Float atomics on one address apply block by block, lane by lane
     (the rounding of every add, and the old value each lane sees, depend
@@ -157,4 +216,6 @@ def all_cases(ir=_ir) -> Iterator[Tuple[str, tuple]]:
         yield f"{op}_f32", unary_case(op, ir)
     yield "neg_zero_fold", neg_zero_fold_case(ir)
     yield "divergent_folds", divergent_folds_case(ir)
+    yield "reduce_max_ties", reduce_max_ties_case(ir)
     yield "atomic_order", atomic_order_case(ir)
+    yield "staged_window", staged_window_case(ir)

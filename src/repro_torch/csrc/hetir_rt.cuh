@@ -179,3 +179,171 @@ __device__ __forceinline__ void het_st(T* p, long long n, long long i, T v) {
 }
 
 __device__ __forceinline__ int het_even(int n) { return (n + 1) & ~1; }
+
+// ---- read-only loads --------------------------------------------------------
+// a buffer the segment never writes is read through the read-only path
+__device__ __forceinline__ bool het_ldg_raw(const bool* p) { return *p; }
+template <typename T>
+__device__ __forceinline__ T het_ldg_raw(const T* p) { return __ldg(p); }
+template <typename T>
+__device__ __forceinline__ T het_ldg(const T* __restrict__ p, long long n,
+                                     long long i) {
+  if (i < 0) i += n;
+  return (i >= 0 && i < n) ? het_ldg_raw(p + i) : T(0);
+}
+
+// ---- staged windows (repro_torch/core/staging.py) ---------------------------
+// A window holds elements w .. w + L - 1 of a read-only buffer, each as
+// het_ld loads it, in rows of R words followed by 4 words of padding (R = 0:
+// no padding).  w and L are multiples of 4, so 16-byte chunks stay whole.
+__device__ __forceinline__ long long het_floor4(long long x) {
+  return x >= 0 ? x / 4 * 4 : -((-x + 3) / 4 * 4);
+}
+// shared words of a window whose offsets from its uniform part span
+// [lo, hi] over the loops, plus lane (T - 1) for the lanes
+__device__ __forceinline__ long long het_stage_words(long long lo,
+                                                     long long hi,
+                                                     long long lane, int T,
+                                                     long long R) {
+  const long long lt = lane * (T - 1);
+  lo += lt < 0 ? lt : 0;
+  hi += lt > 0 ? lt : 0;
+  const long long n = (hi - lo + 1 + 6) / 4 * 4;
+  return R ? n + 4 * ((n + R - 1) / R) : n;
+}
+// the window's start and length for uniform part u, into out[0..1]; a
+// window that does not fit the budget has length 0 (every read goes to
+// the buffer)
+__device__ __forceinline__ void het_stage_window(long long u, long long lo,
+                                                 long long hi, long long lane,
+                                                 int T, bool on,
+                                                 long long* out) {
+  const long long lt = lane * (T - 1);
+  const long long w = het_floor4(u + lo + (lt < 0 ? lt : 0));
+  const long long e = u + hi + (lt > 0 ? lt : 0) + 1;
+  out[0] = w;
+  out[1] = on ? (e - w + 3) / 4 * 4 : 0;
+}
+// all threads of the block copy the window: 16-byte cp.async copies by
+// neighbouring threads where the chunk lies inside the buffer, het_ld
+// element by element where it does not (wrapped or out of range)
+template <int R, typename T>
+__device__ __forceinline__ void het_stage_copy(T* st, long long w,
+                                               long long L, const T* g,
+                                               long long n, int t, int nt) {
+  const bool vec = (reinterpret_cast<unsigned long long>(g) & 15ull) == 0;
+  for (long long c = 4ll * t; c < L; c += 4ll * nt) {
+    const long long gi = w + c;
+    T* dst = st + (R ? c + 4 * (c / R) : c);
+    if (vec && gi >= 0 && gi + 4 <= n) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                   "l"(g + gi) : "memory");
+    } else {
+      for (int e = 0; e < 4; ++e) dst[e] = het_ld(g, n, gi + e);
+    }
+  }
+}
+__device__ __forceinline__ void het_stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// element i of a staged buffer: from the window when i lies in it, else
+// from the buffer — the same value either way
+template <int R, typename T>
+__device__ __forceinline__ T het_stage_ld(const T* st, long long w,
+                                          long long L, const T* g,
+                                          long long n, long long i) {
+  const long long k = i - w;
+  if (k >= 0 && k < L) return st[R ? k + 4 * (k / R) : k];
+  return het_ldg(g, n, i);
+}
+
+// ---- block folds ------------------------------------------------------------
+__device__ __forceinline__ float het_maxv(float a, float b) { return het_max_f32(a, b); }
+__device__ __forceinline__ int het_maxv(int a, int b) { return het_max_i32(a, b); }
+__device__ __forceinline__ unsigned het_maxv(unsigned a, unsigned b) { return het_max_u32(a, b); }
+__device__ __forceinline__ float het_addv(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ int het_addv(int a, int b) { return het_add_i32(a, b); }
+__device__ __forceinline__ unsigned het_addv(unsigned a, unsigned b) { return a + b; }
+template <typename T> __device__ __forceinline__ T het_from_bits(unsigned u);
+template <> __device__ __forceinline__ float het_from_bits<float>(unsigned u) { return het_f32(u); }
+template <> __device__ __forceinline__ int het_from_bits<int>(unsigned u) { return het_i32(u); }
+template <> __device__ __forceinline__ unsigned het_from_bits<unsigned>(unsigned u) { return u; }
+
+// lanes of thread t's warp that exist in a block of T threads
+__device__ __forceinline__ unsigned het_warp_mask(int t, int T) {
+  const int n = T - (t & ~31);
+  return n >= 32 ? 0xffffffffu : ((1u << n) - 1u);
+}
+
+// REDUCE_MAX over the active lanes: what the fold in lane order gives.
+// het_maxv(a, b) keeps the later operand on a tie (so of +0 and -0 the
+// later lane's) and the earlier NaN; it is associative, so a tree that
+// always puts the lower lanes on the left gives the fold's bits: each warp
+// combines neighbouring ranges [i, i + off) by shuffles down with offsets
+// 1, 2, 4, 8, 16, then thread 0 combines the warps in order.  With no
+// active lane the result is 0, as the fold's.  scr_a/scr_v hold a flag and
+// a value per warp, scr_r the result.
+template <typename T>
+__device__ __forceinline__ T het_block_max(bool act, T v, int t, int nt,
+                                           int* scr_a, unsigned* scr_v,
+                                           unsigned* scr_r) {
+  const unsigned mask = het_warp_mask(t, nt);
+  const int lane = t & 31;
+  int h = act ? 1 : 0;
+  T x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T y = __shfl_down_sync(mask, x, off);
+    const int hy = __shfl_down_sync(mask, h, off);
+    if (lane + off < 32 && t + off < nt && hy) {
+      x = h ? het_maxv(x, y) : y;
+      h = 1;
+    }
+  }
+  if (lane == 0) {
+    scr_a[t >> 5] = h;
+    scr_v[t >> 5] = het_bits(x);
+  }
+  __syncthreads();
+  if (t == 0) {
+    T acc = T(0);
+    bool have = false;
+    for (int w = 0; w < (nt + 31) / 32; ++w)
+      if (scr_a[w]) {
+        const T y = het_from_bits<T>(scr_v[w]);
+        acc = have ? het_maxv(acc, y) : y;
+        have = true;
+      }
+    scr_r[0] = het_bits(acc);
+  }
+  __syncthreads();
+  return het_from_bits<T>(scr_r[0]);
+}
+
+// REDUCE_ADD (scan = false) or SCAN_ADD (scan = true) over the active
+// lanes, folded from 0 in lane order by thread 0 — rounding forbids a
+// tree.  (Gathering 32 lanes at a time into warp 0's registers and folding
+// by shuffles was slower on the H100: the shuffles sit in the add chain.)
+// The sum goes to scr_r[0]; a scan leaves each active lane's running sum
+// in scr_o.
+template <typename T, bool scan>
+__device__ __forceinline__ void het_block_add(bool act, T v, int t, int nt,
+                                              int* scr_a, unsigned* scr_v,
+                                              unsigned* scr_o,
+                                              unsigned* scr_r) {
+  scr_a[t] = act ? 1 : 0;
+  scr_v[t] = het_bits(v);
+  __syncthreads();
+  if (t == 0) {
+    T acc = T(0);
+#pragma unroll 8
+    for (int l = 0; l < nt; ++l)
+      if (scr_a[l]) {
+        acc = het_addv(acc, het_from_bits<T>(scr_v[l]));
+        if (scan) scr_o[l] = het_bits(acc);
+      }
+    scr_r[0] = het_bits(acc);
+  }
+  __syncthreads();
+}

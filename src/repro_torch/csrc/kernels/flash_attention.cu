@@ -1,5 +1,8 @@
-// Flash attention forward: causal or sliding-window softmax attention on
-// q, k, v [B, H, S, d] (kv repeated for GQA), online softmax in f32.
+// Flash attention forward for f32: causal or sliding-window softmax
+// attention on q, k, v [B, H, S, d] f32 (kv repeated for GQA), online
+// softmax in f32.  bf16 inputs go to flash_attention_sm90.cu (wgmma fed by
+// TMA); f32 stays on the CUDA cores, with no TF32, because its results are
+// held to 2e-5.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_fwd, pl.pallas_call at :114; body _fwd_kernel at :30).
@@ -25,25 +28,14 @@
 // + 64 * 33 floats — 41.6 KB, 74.4 KB and 140 KB.
 //
 // Why CUDA C++: the kv sweep carries per-row state across a loop inside
-// the block, and the same ctypes build serves the package's four kernels.
+// the block, and the same ctypes build serves the package's kernels.
 //
-// Bound on this card: bf16 at Llama 3.2 3B's prefill shape is bound by the
-// tensor cores' operations; this kernel multiplies on the CUDA cores in
-// f32 out of shared memory (no wgmma, no TMA yet), so it is bound by their
-// rate and by shared-memory reads.
+// Bound on this card: f32 at Llama 3.2 3B's prefill shape is bound by the
+// CUDA cores' f32 rate; this kernel multiplies out of shared memory, so it
+// is bound by that rate and by shared-memory reads.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 
 namespace {
-
-__device__ __forceinline__ float ld(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, long i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, long i, float v) {
-  p[i] = __float2bfloat16(v);
-}
 
 constexpr int BQ = 64, BK = 32, THREADS = 256;
 constexpr int RT = BQ / 16;  // query rows a thread owns
@@ -55,10 +47,10 @@ constexpr int smem_floats() {
   return (BQ + BK) * (DMAX + 1) + BK * DMAX + BQ * (BK + 1);
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
                  int d, int causal, int window, float scale) {
   constexpr int LD = DMAX + 1;  // padded row stride of the q and k tiles
   constexpr int DC = DMAX / 16; // output columns of a row a thread owns
@@ -69,17 +61,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ps = vs + BK * DMAX;   // [BQ][BK + 1] probabilities
 
   const long head = (long)blockIdx.z * gridDim.y + blockIdx.y;
-  const T* qh = q + head * Sq * d;
-  const T* kh = k + head * Sk * d;
-  const T* vh = v + head * Sk * d;
-  T* oh = o + head * Sq * d;
+  const float* qh = q + head * Sq * d;
+  const float* kh = k + head * Sk * d;
+  const float* vh = v + head * Sk * d;
+  float* oh = o + head * Sq * d;
   const int q_start = blockIdx.x * BQ;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
 
   for (int i = tid; i < BQ * DMAX; i += THREADS) {
     const int r = i / DMAX, c = i % DMAX;
     qs[r * LD + c] = (q_start + r < Sq && c < d)
-                         ? ld(qh, (long)(q_start + r) * d + c) : 0.0f;
+                         ? qh[(long)(q_start + r) * d + c] : 0.0f;
   }
   float m[RT], l[RT], acc[RT][DC];
 #pragma unroll
@@ -101,8 +93,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / DMAX, c = i % DMAX;
       const bool in = k_start + r < Sk && c < d;
       const long g = (long)(k_start + r) * d + c;
-      ks[r * LD + c] = in ? ld(kh, g) : 0.0f;
-      vs[r * DMAX + c] = in ? ld(vh, g) : 0.0f;
+      ks[r * LD + c] = in ? kh[g] : 0.0f;
+      vs[r * DMAX + c] = in ? vh[g] : 0.0f;
     }
     __syncthreads();
 
@@ -181,55 +173,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
-      if (col < d) st(oh, (long)r * d + col, acc[i][c] / den);
+      if (col < d) oh[(long)r * d + col] = acc[i][c] / den;
     }
   }
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Sq, int Sk, int d, int causal, int window, float scale,
            cudaStream_t s) {
   constexpr int bytes = smem_floats<DMAX>() * (int)sizeof(float);
-  auto kernel = flash_fwd_kernel<T, DMAX>;
+  auto kernel = flash_fwd_kernel<DMAX>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, d, causal,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, d, causal,
       window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Sq, int Sk, int d, int causal, int window,
-             float scale, cudaStream_t s) {
-  if (d <= 64)
-    return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, d, causal, window, scale,
-                         s);
-  if (d <= 128)
-    return launch<T, 128>(q, k, v, o, B, H, Sq, Sk, d, causal, window,
-                          scale, s);
-  return launch<T, 256>(q, k, v, o, B, H, Sq, Sk, d, causal, window, scale,
-                        s);
-}
-
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v, o); window < 0: no window.
-// The wrapper refuses d > 256.
+// q, k, v, o f32; window < 0: no window.  The wrapper refuses d > 256.
 extern "C" int launch_flash_attention(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int Sq, int Sk, int d, int causal,
-                                      int window, float scale, int dtype,
-                                      void* stream) {
+                                      int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, o, B, H, Sq, Sk, d, causal, window, scale,
-                           s);
-  return launch_d<__nv_bfloat16>(q, k, v, o, B, H, Sq, Sk, d, causal, window,
-                                 scale, s);
+  if (d <= 64)
+    return launch<64>(q, k, v, o, B, H, Sq, Sk, d, causal, window, scale, s);
+  if (d <= 128)
+    return launch<128>(q, k, v, o, B, H, Sq, Sk, d, causal, window, scale, s);
+  return launch<256>(q, k, v, o, B, H, Sq, Sk, d, causal, window, scale, s);
 }

@@ -1,6 +1,7 @@
 """What the hand-written kernels of :mod:`repro_torch.kernels` share.
 
-Each kernel is one self-contained CUDA C++ file ``csrc/kernels/<name>.cu``
+Each kernel is one CUDA C++ file ``csrc/kernels/<name>.cu`` (the ones on
+Hopper's tensor cores over the shared header ``csrc/kernels/sm90.cuh``)
 with an ``extern "C"`` launcher that returns ``cudaGetLastError()``.  The
 library is built by ``nvcc`` for ``sm_90a`` at first use
 (:func:`~repro_torch.core.backends.nvcc_build.kernel_job`, hash-named in
@@ -17,8 +18,11 @@ import torch
 
 from ..core.backends import nvcc_build
 
-#: every kernel of the package, by the name of its ``.cu`` file
+#: every kernel package, by the name of its ``.cu`` file
 KERNELS = ("flash_attention", "moe_gmm", "rglru_scan", "mlstm_chunk")
+#: every ``.cu`` file of the package: the packages' kernels and the bf16
+#: flash attention kernel for Hopper's tensor cores
+SOURCES = KERNELS[:1] + ("flash_attention_sm90",) + KERNELS[1:]
 #: the element-type code the launchers take
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 FLOATS = tuple(DTYPE_CODE)

@@ -6,14 +6,26 @@ Port of ``src/repro/kernels/flash_attention/kernel.py``
 f32 accumulator, running max and denominator, masked kv tail, cast on the
 final flush.
 
-The CUDA kernel (``csrc/kernels/flash_attention.cu``) runs one block per
-(batch, head, 64-row q tile) and loops over 32-row kv tiles inside the
-block, skipping the tiles past the diagonal (causal) and left of the band
-(window).  It takes ``d <= 256`` in three builds — ``d <= 64``, ``<= 128``
-and ``<= 256`` — each padding the head to its width with zeros; q tiles of
-64 and kv tiles of 32 rows go with all three.  ``bq`` and ``bk`` are the
-Pallas tiles, kept by the plain version; on the card they do not change
-the result (a tile that is skipped or not gives the same sums).
+Two CUDA kernels, by input type, each skipping the kv tiles past the
+diagonal (causal) and left of the band (window), and each taking ``d <=
+256`` in three builds — ``d <= 64``, ``<= 128`` and ``<= 256`` — that pad
+the head with zeros:
+
+* bf16: ``csrc/kernels/flash_attention_sm90.cu``, one block per (batch,
+  head, 128-row q tile): a producer warpgroup loads q, K and V tiles by
+  TMA into a two-stage ring, two consumer warpgroups multiply with
+  ``wgmma`` (f32 accumulators; P enters ``P V`` as two bf16 operands,
+  ``hi + lo``).  ``d`` must be a multiple of
+  8 (TMA strides are multiples of 16 bytes).  Launches counted in
+  ``flash_attention_fwd.sm90_launches``.
+* f32: ``csrc/kernels/flash_attention.cu`` on the CUDA cores in IEEE f32
+  (no TF32: f32 results are held to 2e-5), one block per (batch, head,
+  64-row q tile) over 32-row kv tiles.  Launches counted in
+  ``flash_attention_fwd.launches``.
+
+``bq`` and ``bk`` are the Pallas tiles, kept by the plain version; on the
+card they do not change the result (a tile that is skipped or not gives
+the same sums).
 """
 from __future__ import annotations
 
@@ -89,16 +101,29 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
                          f"takes d <= {MAX_D}")
     if window is not None and window < 1:
         raise ValueError(f"window={window}: a window holds at least one key")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and d % 8:
+        raise ValueError(f"head width d={d}: the bf16 kernel loads tiles by "
+                         "TMA, whose row strides must be multiples of 16 "
+                         "bytes (d a multiple of 8)")
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v: the bf16 kernel's TMA loads need "
+                         "16-byte aligned tensors")
     out = torch.empty_like(q)
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
-    _cuda.launch("flash_attention", [P, P, P, P, I, I, I, I, I, I, I, F32, I],
+    _cuda.launch("flash_attention_sm90" if bf16 else "flash_attention",
+                 [P, P, P, P, I, I, I, I, I, I, I, F32],
                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), B, H, Sq, Sk, d, int(causal),
-                 -1 if window is None else window, 1.0 / math.sqrt(d),
-                 _cuda.DTYPE_CODE[q.dtype])
-    flash_attention_fwd.launches += 1
+                 -1 if window is None else window, 1.0 / math.sqrt(d))
+    if bf16:
+        flash_attention_fwd.sm90_launches += 1
+    else:
+        flash_attention_fwd.launches += 1
     return out
 
 
-#: kernel launches (the plain version launches nothing)
+#: launches of the f32 CUDA-core kernel and of the bf16 wgmma/TMA kernel
+#: (the plain version launches nothing)
 flash_attention_fwd.launches = 0
+flash_attention_fwd.sm90_launches = 0

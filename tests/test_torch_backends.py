@@ -145,6 +145,22 @@ def test_collectives_fold_in_lane_order_under_divergence():
     _check_all(*edge.divergent_folds_case(ref_ir))
 
 
+def test_reduce_max_ties_resolve_as_the_lane_order_fold():
+    """The CUDA kernel's REDUCE_MAX is a shuffle tree; its result must be
+    the fold's: of +0 and -0 the later lane's, the first NaN."""
+    want = _check_all(*edge.reduce_max_ties_case(ref_ir))
+    m, p = want["M"].reshape(4, 48), want["P"].reshape(4, 48)
+    assert np.isnan(m[2]).all()
+    # lanes 41-43 hold (+0, -0, +0); lane 43 is off under the predicate
+    assert not np.signbit(m[3, 0]) and np.signbit(p[3, 0])
+
+
+def test_staged_window_reads_wrapped_indices_as_the_interpreter():
+    """The loads the CUDA kernel stages in shared memory, at negative
+    indices down to -n and up to n - 1, with windows past both ends."""
+    _check_all(*edge.staged_window_case(ref_ir))
+
+
 def test_atomic_add_and_conflicting_stores_follow_lane_order():
     """Float atomics on one address apply block by block, lane by lane (the
     rounding of every add, and the old value each lane sees, depend on

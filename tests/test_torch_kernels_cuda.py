@@ -2,12 +2,14 @@
 each held against its plain PyTorch version on the same card, at small and
 uneven shapes that reach the kernels' edges: head widths that are not a
 power of two, kv and q tails, windows, experts with no live row, rows
-past the counts, partial chunks and every chunk build.
+past the counts, partial chunks and every chunk build.  Both flash
+attention kernels are here: f32 on the CUDA cores, bf16 on wgmma/TMA
+(every head-width build, held to one bf16 step).
 
 Marked ``gpu``: without a CUDA device every test skips.  On a machine with
-one (no jax needed):
+one (no jax needed), from the checkout root:
 
-    python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_cuda.py
 """
 import numpy as np
 import pytest
@@ -50,6 +52,12 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+#: bf16 attention outputs, (atol, rtol): one bf16 step (2^-7 of the value)
+#: between two roundings of f32 results, 1e-3 absolute for outputs near 0
+#: (chip_smoke.py's BF16_ATTN_TOL)
+BF16_ATTN_TOL = (1e-3, 2.0 ** -7)
+
+
 @pytest.mark.parametrize("B,H,Sq,Sk,d,causal,window,dt", [
     (1, 2, 200, 200, 64, True, None, "f32"),
     (2, 1, 130, 130, 120, False, None, "bf16"),
@@ -57,20 +65,48 @@ def _close(got, want, tol):
     (1, 1, 96, 96, 256, False, None, "f32"),
     (2, 2, 65, 65, 32, True, 7, "f32"),
     (1, 1, 64, 160, 128, False, 40, "f32"),
+    # bf16, the wgmma/TMA kernel: every head-width build, q and kv tails
+    # off the 64- and 128-row tiles, windows of 1 and 7, B * H > 1
+    (1, 2, 200, 200, 32, True, None, "bf16"),
+    (2, 2, 65, 65, 64, True, 7, "bf16"),
+    (1, 3, 77, 77, 128, True, 1, "bf16"),
+    (1, 1, 129, 129, 128, True, None, "bf16"),
+    (1, 1, 64, 160, 128, False, 40, "bf16"),
+    (2, 3, 190, 250, 64, False, None, "bf16"),
+    (1, 2, 333, 333, 256, False, 7, "bf16"),
+    (1, 2, 257, 257, 256, True, 1, "bf16"),
+    (3, 1, 100, 70, 120, False, None, "bf16"),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, H, Sq, Sk, d, causal,
                                               window, dt):
     rng = np.random.default_rng(0)
     q = _t(rng.normal(size=(B, H, Sq, d)), dev, dt)
     k, v = (_t(rng.normal(size=(B, H, Sk, d)), dev, dt) for _ in range(2))
-    before = flash_attention_fwd.launches
-    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
-    assert flash_attention_fwd.launches == before + 1
-    tol = 2e-2 if dt == "bf16" else 2e-5
-    _close(got, flash_attention_plain(q, k, v, causal=causal, window=window),
-           tol)
+    fa = flash_attention_fwd
+    before = (fa.launches, fa.sm90_launches)
+    got = fa(q, k, v, causal=causal, window=window)
+    # bf16 goes to the wgmma/TMA kernel, f32 to the CUDA-core kernel
+    assert (fa.launches, fa.sm90_launches) == \
+        (before[0] + (dt == "f32"), before[1] + (dt == "bf16"))
+    atol, rtol = BF16_ATTN_TOL if dt == "bf16" else (2e-5, 2e-5)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
     if Sq == Sk:
-        _close(got, attention_ref(q, k, v, causal=causal, window=window), tol)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_flash_attention_bf16_refuses_what_tma_cannot_load(dev):
+    q = torch.zeros((1, 1, 64, 100), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_fwd(q, q, q)
+    buf = torch.zeros(1 * 1 * 64 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    odd = buf[1:].view(1, 1, 64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(odd, odd, odd)
 
 
 @pytest.mark.parametrize("E,C,D,F,bc,dt,zero_dead", [
