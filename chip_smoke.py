@@ -12,7 +12,7 @@ card) and against the NumPy oracles:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the ``nvcc`` build of every segment library used below (one ``nvcc``
-   per optimized program) and of the five hand-written kernels of
+   per optimized program) and of the six hand-written kernels of
    ``repro_torch.kernels`` (one ``nvcc`` per source), in one batch that
    runs one ``nvcc`` per CPU core at a time;
 1. all 17 suite and 4 zoo kernels at their canonical launch, at O0 and
@@ -32,7 +32,9 @@ card) and against the NumPy oracles:
    card and finished — bits unchanged; the step must have run a segment
    kernel that staged its K tile in shared memory and one that folded
    ``REDUCE_MAX`` by a shuffle tree (``CudaBackend.scalar_paths``);
-3. full width, block path: ``vadd`` over 2^24 elements;
+3. full width, block path: ``vadd`` over 2^24 elements, whose block kernel
+   must move no register array (per-segment liveness): the bytes per
+   element its slots imply are printed;
 4. times: one launch of 2 and of 3 (median over warm launches, CUDA
    events), the device time of its segment kernels alone, their plain
    versions, one PyTorch call computing the same function as a yardstick,
@@ -46,15 +48,16 @@ card) and against the NumPy oracles:
    bf16 on the wgmma/TMA kernel and f32 on the CUDA-core one, each with
    its own launch count) and recurrentgemma-2b's local attention (10
    heads of 256, window 2048, bf16 and f32); the MoE grouped matmul at granite-moe-3b-a800m's
-   experts (40 x 1024 rows x 1536 -> 512, bf16, seeded counts with an
-   empty and a full expert); the RG-LRU scan at recurrentgemma-2b's width
-   (4096 steps x 2560 channels, bf16); the mLSTM chunk kernel at
+   experts (40 x 1024 rows x 1536 -> 512, seeded counts with an empty and
+   a full expert; bf16 on the wgmma/TMA kernel, f32 on the CUDA-core one,
+   each with its own launch count); the RG-LRU scan at recurrentgemma-2b's
+   width (4096 steps x 2560 channels, bf16); the mLSTM chunk kernel at
    xlstm-125m's width (32 batch-heads x 4096 steps, dk = dv = 384, f32,
    bt 128).  Each result is held against the kernel's plain version and
    the torch oracle on the card, at the JAX tests' tolerances in the
-   working type — except bf16 attention, held to one bf16 step
-   (``BF16_ATTN_TOL``): at 4096 tokens its outputs are near 0.03, so the
-   tests' 2e-2 would hide a mask error; each attention case also checks
+   working type (grouped matmul 5e-2 bf16, 1e-4 f32) — except bf16
+   attention, held to one bf16 step (``BF16_ATTN_TOL``): at 4096 tokens
+   its outputs are near 0.03, so the tests' 2e-2 would hide a mask error; each attention case also checks
    that oracles with a planted mask error (a band one key short or long,
    late rows missing their first kv tile) fall outside its tolerance;
    empty experts must be exact zeros, the scan bit-equal,
@@ -63,16 +66,22 @@ card) and against the NumPy oracles:
    and ``het_kernel`` runs a suite program on the card bit-equal to
    ``het_kernel_ref``.
 
-Phase 4 runs last and also times the four kernels (CUDA events, median of
-warm launches), their plain versions, and the one PyTorch call that
-computes the same function where there is one (``scaled_dot_product_attention``
-for flash attention, ``torch.bmm`` for the grouped matmul).
+Phase 4 runs last and also times the six library kernels (CUDA events,
+median of warm launches, and the profiler's device time), their plain
+versions, and the one PyTorch call that computes the same function where
+there is one (``scaled_dot_product_attention`` for flash attention,
+``torch.bmm`` for the grouped matmul).
 
 In the ``kernels`` line, a segment kernel's ``ms`` is the device time of
 the segment kernels of one launch, ``launch_ms`` the latency of the whole
 launch (host work and the engine's copies included), ``plain_ms`` the same
 launch through the plain version on the card; a library kernel's ``ms`` is
-its device time at the main path's shape, ``plain_ms`` its plain version's.
+the time of one call at the main path's shape (CUDA events around the
+call, so the host's work before the launch counts where the device waits
+for it), ``device_ms`` the device time of its kernels alone (from
+``torch.profiler``; null where the profiler saw no device activity),
+``plain_ms`` its plain version's; ``library_ms`` and
+``library_device_ms`` the same two for the PyTorch call.
 
 The launch counts of the kernels are reset before phases 2-3 and read after
 them, and reset before phase 5's main path and read after it.  Any
@@ -168,6 +177,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:98",
     "flash_attention_sm90": "src/repro/kernels/flash_attention/kernel.py:98",
     "moe_gmm": "src/repro/kernels/moe_gmm/kernel.py:47",
+    "moe_gmm_sm90": "src/repro/kernels/moe_gmm/kernel.py:47",
     "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:54",
     "mlstm_chunk": "src/repro/kernels/mlstm_chunk/kernel.py:79",
 }
@@ -478,17 +488,24 @@ def library_cases(dev) -> list:
         """rows past counts[e] (all of the empty expert) are not zeros"""
         return bool((out[dead] == 0).all())
 
-    cases.append(LibCase(
-        "moe_gmm", "granite-moe-3b-a800m experts, bf16",
-        lambda: moe_gmm(x, w, counts), lambda: gmm.moe_gmm_fwd(x, w, counts),
-        lambda: gmm.moe_gmm_plain(x, w, counts),
-        lambda: moe_gmm_ref(x, w, counts), 5e-2,
-        # live rows of x, the weights of experts with a live row, all of
-        # the output, the counts
-        int(live.sum()) * GMM_D * 2 + int((live > 0).sum()) * GMM_D
-        * GMM_F * 2 + GMM_E * GMM_C * GMM_F * 2 + 4 * GMM_E,
-        2.0 * int(live.sum()) * GMM_D * GMM_F, BF16_OPS_PER_S,
-        lambda: torch.bmm(x, w), invariant=dead_rows_zero))
+    # bf16 runs on the wgmma/TMA kernel, f32 on the CUDA-core one; the
+    # bound counts live rows of x, the weights of experts with a live row,
+    # all of the output and the counts
+    for kernel, xe, we, rate, tol in (
+            ("moe_gmm_sm90", x, w, BF16_OPS_PER_S, 5e-2),
+            ("moe_gmm", x.float(), w.float(), F32_OPS_PER_S, 1e-4)):
+        size = xe.element_size()
+        cases.append(LibCase(
+            kernel, "granite-moe-3b-a800m experts, "
+            + ("bf16" if xe.dtype == bf16 else "f32"),
+            lambda xe=xe, we=we: moe_gmm(xe, we, counts),
+            lambda xe=xe, we=we: gmm.moe_gmm_fwd(xe, we, counts),
+            lambda xe=xe, we=we: gmm.moe_gmm_plain(xe, we, counts),
+            lambda xe=xe, we=we: moe_gmm_ref(xe, we, counts), tol,
+            (int(live.sum()) * GMM_D + int((live > 0).sum()) * GMM_D * GMM_F
+             + GMM_E * GMM_C * GMM_F) * size + 4 * GMM_E,
+            2.0 * int(live.sum()) * GMM_D * GMM_F, rate,
+            lambda xe=xe, we=we: torch.bmm(xe, we), invariant=dead_rows_zero))
 
     a = uniform(0.7, 0.999, RG_B, RG_S, RG_D).to(bf16)
     xr = randn(RG_B, RG_S, RG_D, scale=0.1, dtype=bf16)
@@ -677,6 +694,12 @@ def main() -> int:
           f"{built['seconds']:.1f} s for {len(optimized)} optimized programs "
           f"and the {len(kernel_lib.SOURCES)} hand-written kernels (one "
           "nvcc per source, one per CPU core at a time)")
+    # ptxas's report of the tensor-core kernels: registers and spills
+    for name in ("flash_attention_sm90", "moe_gmm_sm90"):
+        log = built["logs"].get(nvcc_build.kernel_job(name)[1], "")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"# ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
     # -- phase 1: every kernel against its plain version and the oracle ---------
     for name in names:
@@ -761,6 +784,13 @@ def main() -> int:
     torch.cuda.synchronize()
     check(same_bits(vout["C"], vadd_want),
           "vadd 2^24: kernel != oracle bits")
+    # the block kernel moves the buffers' words and no register array
+    (vmod,) = vgpu.backend._modules.values()
+    (vsl,) = [k.slots for k in vmod.kernels.values() if k.has_block]
+    check(not vsl.inputs and not vsl.outputs,
+          f"vadd block kernel has register slots: in {vsl.inputs}, out "
+          f"{vsl.outputs}")
+    vadd_slot_bytes = 4 * len(vsl.buffers + vsl.inputs + vsl.outputs)
     launches = {k: sum(dict(b.launches, **b.scalar_paths)[k]
                        for b in main_backends)
                 for k in ("scalar", "block", "staged", "tree_fold")}
@@ -768,7 +798,9 @@ def main() -> int:
           f"main path missed a kernel: launches {launches}")
     print("phase 2: attn_decode H=24 D=128 window 4096: bits equal to the "
           "oracle; cuda -> CPU eager -> cuda migration bit-identical")
-    print("phase 3: vadd 2^24: bits equal to the oracle")
+    print(f"phase 3: vadd 2^24: bits equal to the oracle; its block kernel "
+          f"has no register slot: {vadd_slot_bytes} B per element "
+          f"({len(vsl.buffers)} buffer words)")
     print(f"# segment-kernel launches per decode step: {step_launches} "
           f"({segs_per_step} segments)")
 
@@ -798,6 +830,7 @@ def main() -> int:
                 "flash_attention_sm90": (flash_attention_fwd,
                                          "sm90_launches"),
                 "moe_gmm": (moe_gmm_fwd, "launches"),
+                "moe_gmm_sm90": (moe_gmm_fwd, "sm90_launches"),
                 "rglru_scan": (rglru_scan_fwd, "launches"),
                 "mlstm_chunk": (mlstm_chunk_fwd, "launches")}
     cases = library_cases(dev)
@@ -865,6 +898,11 @@ def main() -> int:
     b = torch.from_numpy(vadd_args["B"]).to(dev)
     c = torch.empty_like(a)
     vadd_lib_ms = time_ms(lambda: torch.add(a, b, out=c), 20)
+    # the library calls' device time alone, as for the library kernels
+    attn_lib_dev_ms = sum(profile_launch(lambda: sdpa(
+        q, kk, vv, scale=float(attn_args["scale"]))).values()) or None
+    vadd_lib_dev_ms = sum(profile_launch(
+        lambda: torch.add(a, b, out=c)).values()) or None
 
     attn_bytes = 4 * (attn_args["Q"].size + attn_args["K"].size
                       + attn_args["V"].size + attn_args["O"].size)
@@ -875,7 +913,8 @@ def main() -> int:
     vadd_bound_ms = max(vadd_bytes / HBM_BYTES_PER_S,
                         VADD_N / F32_OPS_PER_S) * 1e3
     print(f"# attn_decode step: {attn_ms:.4f} ms (plain {attn_plain_ms:.4f} "
-          f"ms, SDPA fp32 {attn_lib_ms:.4f} ms, bound {attn_bound_ms:.4f} ms "
+          f"ms, SDPA fp32 {attn_lib_ms:.4f} ms (device {attn_lib_dev_ms} "
+          f"ms), bound {attn_bound_ms:.4f} ms "
           f"= {attn_bytes} B / 3.35 TB/s) on {smi}")
     print(f"# attn_decode step: {attn_nk} segment kernels take "
           f"{attn_dev_ms:.4f} ms of device time; the rest is host work")
@@ -887,7 +926,8 @@ def main() -> int:
     print(f"#   the other {attn_nk - sum(n for _, (_, n) in tiles)} "
           f"launches: {rest:.4f} ms")
     print(f"# vadd 2^24: {vadd_ms:.4f} ms (plain {vadd_plain_ms:.4f} ms, "
-          f"torch.add {vadd_lib_ms:.4f} ms, bound {vadd_bound_ms:.4f} ms "
+          f"torch.add {vadd_lib_ms:.4f} ms (device {vadd_lib_dev_ms} ms), "
+          f"bound {vadd_bound_ms:.4f} ms "
           f"= {vadd_bytes} B / 3.35 TB/s) on {smi}")
     print(f"# vadd 2^24: {vadd_nk} segment kernel takes {vadd_dev_ms:.4f} ms "
           "of device time")
@@ -904,14 +944,14 @@ def main() -> int:
          "ms": attn_dev_ms, "launch_ms": attn_ms,
          "plain_ms": attn_plain_ms,
          "bound_ms": attn_bound_ms, "bound_by": "bytes",
-         "library_ms": attn_lib_ms},
+         "library_ms": attn_lib_ms, "library_device_ms": attn_lib_dev_ms},
         {"name": "hetir_segment_block", "route": "cuda", "source": src,
          "replaces": "src/repro/core/backends/pallas_backend.py:263",
          "launches": launches["block"], "max_abs_err": vadd_err,
          "ms": vadd_dev_ms, "launch_ms": vadd_ms,
          "plain_ms": vadd_plain_ms,
          "bound_ms": vadd_bound_ms, "bound_by": "bytes",
-         "library_ms": vadd_lib_ms},
+         "library_ms": vadd_lib_ms, "library_device_ms": vadd_lib_dev_ms},
     ]
     # the kernel library at phase 5's shapes: the first case of each kernel
     # goes into the kernels line
@@ -921,11 +961,19 @@ def main() -> int:
         # rglru_scan and mlstm_chunk: no single PyTorch call computes a
         # linear recurrence or chunked gated linear attention, so null
         lib_ms = time_ms(c.library, 10) if c.library is not None else None
+        # the device alone (the profiler's kernel times of one warm call):
+        # a call's event time also holds the host's work before the launch
+        # when the device is idle
+        dev_ms = sum(profile_launch(c.fwd).values()) or None
+        lib_dev_ms = sum(profile_launch(c.library).values()) or None \
+            if c.library is not None else None
         bound_ms, bound_by = c.bound()
-        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"# {c.label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library call {lib_txt}, bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({c.nbytes} B, {c.ops:.6g} operations) on {smi}")
+        lib_txt = "none" if lib_ms is None else \
+            f"{lib_ms:.4f} ms (device {lib_dev_ms} ms)"
+        print(f"# {c.label}: kernel {ms:.4f} ms (device {dev_ms} ms), plain "
+              f"{plain_ms:.4f} ms, library call {lib_txt}, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({c.nbytes} B, {c.ops:.6g} "
+              f"operations) on {smi}")
         if any(k["name"] == c.kernel for k in kernels):
             continue
         kernels.append(
@@ -933,8 +981,9 @@ def main() -> int:
              "source": f"src/repro_torch/csrc/kernels/{c.kernel}.cu",
              "replaces": REPLACES[c.kernel],
              "launches": lib_launches[c.kernel], "max_abs_err": c.err,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": lib_ms})
+             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": lib_ms, "library_device_ms": lib_dev_ms})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

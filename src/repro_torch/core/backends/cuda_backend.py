@@ -35,9 +35,19 @@ hetIR block is known before the loop is staged in shared memory by
 ``cp.async`` (:mod:`~repro_torch.core.staging` decides, here at
 translation); static-trip loops are unrolled by 8.
 
-Block kernel: ``N / BLOCK`` CUDA blocks of ``BLOCK`` threads (``BLOCK`` from
-``passes.choose_block``), lane = flat global id; no shared memory, no
-barriers.
+Block kernel: ``⌈N / (4 BLOCK)⌉`` CUDA blocks of ``BLOCK`` threads (``BLOCK``
+from ``passes.choose_block``), each thread running the segment for
+``LANES_PER_THREAD = 4`` lanes ``BLOCK`` apart (lane = flat global id,
+split into hetIR block and thread by 32-bit division below 2^31 lanes),
+so that each thread has several lanes' loads in flight; no shared memory,
+no barriers.
+
+Both modes read and write only the registers that cross the segment's
+boundary (:class:`SegmentSlots`, from :mod:`~repro_torch.core.liveness`):
+in, those whose incoming value some lane may read (read before written,
+or defined only in part and live after it); out, those it defines that
+some later node may read.  An elementwise segment such as ``vadd``'s
+moves its buffers and no register array.
 
 Bound on this card: the segment kernels of the decode path are latency- and
 launch-bound (tens of short segments per launch, folds between barriers,
@@ -51,7 +61,7 @@ tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import AbstractSet, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +71,8 @@ from ..alias import affine_env, index_form
 from ..cache import TranslationCache
 from ..passes import (_THREAD_BASES, _decompose, _uniform_regs, block_lower,
                       choose_block, refusal_category)
-from ..segments import LoopStart, SegNode, segment_program
+from ..liveness import live_out, segment_inputs, segment_outputs
+from ..segments import SegNode, program_nodes
 from ..staging import (STAGE_BUDGET_BYTES, plan_staging, segment_prelude,
                        stage_layout, stage_words, staged_loads)
 from . import nvcc_build
@@ -71,6 +82,8 @@ from .semantics import (operand_dtype, run_segment_plain, segment_reg_dtypes,
 
 #: the largest hetIR block the scalar kernel takes (one thread per lane)
 MAX_BLOCK = 1024
+#: lanes a thread of the block kernel runs
+LANES_PER_THREAD = 4
 #: argument slots of ``HetArgs``: pointers, buffer lengths (the first
 #: pointer slots are the global buffers), scalars — sized to keep the
 #: struct under the 4 KB kernel-parameter limit.  The one definition: every
@@ -153,22 +166,15 @@ def _unop(oc: str, a: str, dt: str) -> str:
 
 class SegmentSlots:
     """Argument slots of one segment's kernels (both modes share them).
-    ``live`` names the registers any segment of the program reads: only
-    those are written out (the engine drops every other register after the
-    segment anyway)."""
+    ``live`` names the registers live after the segment
+    (:func:`~repro_torch.core.liveness.live_out`): only those are written
+    out, and a register defined only in part is read in only if it is one
+    of them (:func:`~repro_torch.core.liveness.segment_inputs`)."""
 
-    def __init__(self, seg: SegNode, prog: ir.Program, live: set):
+    def __init__(self, seg: SegNode, prog: ir.Program, live: AbstractSet):
         self.reg_dtypes = segment_reg_dtypes(seg.stmts)
-        top_defs = {s.dest.name for s in seg.stmts
-                    if isinstance(s, ir.Op) and s.dest is not None}
-        uses = {r.name for r in seg.uses}
-        defs = {r.name for r in seg.defs}
-        # incoming values are needed for registers read before their
-        # first write and for registers only written under a predicate or
-        # in a loop (inactive lanes keep the incoming value)
-        self.inputs = sorted(n for n in self.reg_dtypes
-                             if n in uses or (n in defs and n not in top_defs))
-        self.outputs = sorted(defs & live)
+        self.inputs = sorted(segment_inputs(seg, live))
+        self.outputs = sorted(segment_outputs(seg, live))
         self.shared = bool(seg.uses_shared and prog.shared_size)
         self.buffers = sorted(seg.greads | seg.gwrites)
         params, counts = set(), set()
@@ -356,8 +362,8 @@ class _SegmentEmitter:
     def op(self, op: ir.Op, m: Optional[str]) -> None:
         oc, d = op.opcode, op.dest
         if oc == ir.GET_GLOBAL_ID:
-            self.write(d, "((int)((unsigned)b * (unsigned)T + (unsigned)t))",
-                       ir.I32, m)
+            # b * T + t, wrapped to 32 bits
+            self.write(d, "((int)(unsigned long long)lane)", ir.I32, m)
         elif oc == ir.GET_BLOCK_ID:
             self.write(d, "b", ir.I32, m)
         elif oc == ir.GET_THREAD_ID:
@@ -613,12 +619,26 @@ class _SegmentEmitter:
                      "b += gridDim.x) {")
             self.out("  const long long lane = (long long)b * T + t;")
         else:
-            self.out("const long long lane = (long long)blockIdx.x * "
-                     "blockDim.x + threadIdx.x;")
-            self.out("if (lane >= (long long)a.num_blocks * T) return;")
-            self.out("const int b = (int)(lane / T);")
-            self.out("const int t = (int)(lane - (long long)b * T);")
-            self.out("{")
+            # LANES_PER_THREAD lanes a thread, blockDim.x apart (coalesced),
+            # so that each thread keeps several lanes' loads in flight
+            self.out("const long long lanes = (long long)a.num_blocks * T;")
+            self.out("const long long lane0 = (long long)blockIdx.x * "
+                     f"blockDim.x * {LANES_PER_THREAD} + threadIdx.x;")
+            self.out("#pragma unroll")
+            self.out(f"for (int k_ = 0; k_ < {LANES_PER_THREAD}; ++k_) {{")
+            self.out("  const long long lane = lane0 + (long long)k_ * "
+                     "blockDim.x;")
+            self.out("  if (lane >= lanes) break;")
+            # 32-bit division below 2^31 lanes (one uniform branch)
+            self.out("  int b, t;")
+            self.out("  if (lanes <= 0x7fffffffll) {")
+            self.out("    b = (int)((unsigned)lane / (unsigned)T);")
+            self.out("    t = (int)((unsigned)lane - (unsigned)b * "
+                     "(unsigned)T);")
+            self.out("  } else {")
+            self.out("    b = (int)(lane / T);")
+            self.out("    t = (int)(lane - (long long)b * T);")
+            self.out("  }")
         self.depth = 2
         for n in sorted(sl.reg_dtypes):
             dt = sl.reg_dtypes[n]
@@ -711,16 +731,6 @@ def _block_capable(seg: SegNode) -> bool:
     return True
 
 
-def program_nodes(prog: ir.Program) -> list:
-    """The optimized program's node list (memoized on the program, as the
-    engine memoizes it)."""
-    nodes = getattr(prog, "_nodes_cache", None)
-    if nodes is None:
-        nodes = segment_program(prog)
-        prog._nodes_cache = nodes
-    return nodes
-
-
 def emit_module(prog: ir.Program) -> Tuple[str, Dict[int, SegmentKernels]]:
     """CUDA source of every segment kernel of an optimized program, with
     the per-segment launch metadata.  Deterministic in the program."""
@@ -733,13 +743,10 @@ def emit_module(prog: ir.Program) -> Tuple[str, Dict[int, SegmentKernels]]:
              f"static_assert(sizeof(HetArgs) == {ctypes.sizeof(HetArgs)}, "
              '"HetArgs differs from its ctypes mirror");', ""]
     kernels: Dict[int, SegmentKernels] = {}
-    nodes = program_nodes(prog)
-    live = {r.name for n in nodes if isinstance(n, SegNode) for r in n.uses}
-    live |= {n.var.name for n in nodes if isinstance(n, LoopStart)}
-    for seg in nodes:
+    for seg in program_nodes(prog):
         if not isinstance(seg, SegNode):
             continue
-        slots = SegmentSlots(seg, prog, live)
+        slots = SegmentSlots(seg, prog, live_out(prog, seg))
         em = _SegmentEmitter(seg, prog, slots, "s")
         parts.append(f"// segment {seg.index} ({seg.label}): scalar")
         parts.append(em.kernel(f"het_seg{seg.index}_s"))
@@ -875,7 +882,8 @@ class CudaBackend(Backend):
             # CPU tensors: the plain version
             run_segment_plain(seg.stmts, state, launch,
                               block is None and serial_segment(seg),
-                              self.device)
+                              self.device, segment_outputs(
+                                  seg, live_out(launch.program, seg)))
             return
         self._launch(seg, state, launch, block)
 
@@ -925,7 +933,8 @@ class CudaBackend(Backend):
             args.sc[sl.count_slot[n]] = c & 0xFFFFFFFF
         stream = torch.cuda.current_stream(dev).cuda_stream
         if block is not None:
-            mode, grid, threads, smem = "b", B * T // block, block, 0
+            mode, threads, smem = "b", block, 0
+            grid = -(-B * T // (block * LANES_PER_THREAD))
         else:
             if T > MAX_BLOCK:
                 raise ValueError(

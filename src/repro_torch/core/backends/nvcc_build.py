@@ -43,10 +43,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-ftz=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 #: the hand-written kernels carry no one-rounding-per-op contract, so the
 #: compiler may contract multiply-adds; still IEEE division and square
-#: root, no flush to zero, no fast math
+#: root, no flush to zero, no fast math; ``ptxas`` reports each kernel's
+#: registers and spills (:func:`build`'s ``logs``)
 KERNEL_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                      "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
-                     "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+                     "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v")
 #: ``src/repro_torch/csrc/kernels``: one self-contained ``.cu`` per kernel
 KERNEL_DIR = CSRC / "kernels"
 
@@ -124,7 +126,7 @@ def _start(source: str, so: Path, flags: Sequence[str]) -> subprocess.Popen:
     return proc
 
 
-def _finish(proc: subprocess.Popen) -> None:
+def _finish(proc: subprocess.Popen) -> str:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         try:
@@ -134,12 +136,14 @@ def _finish(proc: subprocess.Popen) -> None:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
                            f"{proc.het_so.with_suffix('.cu')}:\n{out}")
     os.replace(proc.het_tmp, proc.het_so)   # atomic publish
+    return out
 
 
 def build(jobs_in: Sequence[tuple]) -> Dict[str, object]:
     """Run ``nvcc`` for every job ``(source, library path, flags)`` whose
     library is missing, one process per CPU core at a time.  Returns
-    ``{"paths": [...], "built": n, "seconds": wall time}``, a path per job;
+    ``{"paths": [...], "built": n, "seconds": wall time, "logs": {path:
+    compiler output}}``, a path per job and a log per library built;
     raises on the first failed build."""
     t0 = time.perf_counter()
     paths: List[Path] = [so for _, so, _ in jobs_in]
@@ -151,17 +155,23 @@ def build(jobs_in: Sequence[tuple]) -> Dict[str, object]:
             todo.append((src, so, flags))
     jobs = os.cpu_count() or 1
     running: List[subprocess.Popen] = []
+    logs: Dict[Path, str] = {}
+
+    def finish() -> None:
+        proc = running.pop(0)
+        logs[proc.het_so] = _finish(proc)
+
     try:
         for src, so, flags in todo:
             if len(running) >= jobs:
-                _finish(running.pop(0))
+                finish()
             running.append(_start(src, so, flags))
         while running:
-            _finish(running.pop(0))
+            finish()
     finally:
         for proc in running:         # a failed build stops the others
             proc.kill()
             proc.wait()
     return {"paths": paths, "built": len(todo),
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, "logs": logs}
 

@@ -37,7 +37,7 @@ once.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import AbstractSet, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -635,11 +635,15 @@ def segment_reg_dtypes(stmts: Sequence[ir.Stmt]) -> Dict[str, str]:
 
 
 def run_segment_plain(stmts: Sequence[ir.Stmt], state: HostState,
-                      launch: Launch, serial: bool,
-                      device: torch.device) -> None:
+                      launch: Launch, serial: bool, device: torch.device,
+                      outputs: AbstractSet[str]) -> None:
     """Evaluate one segment on ``state`` (tensors on ``device``), all
     blocks at once or, when ``serial``, one block at a time in order.
-    Registers the segment does not name pass through untouched."""
+    Only the registers in ``outputs`` (those the segment defines that are
+    live after it, :func:`~repro_torch.core.liveness.segment_outputs`)
+    are written back, as the CUDA kernel writes them: every lane, zeros
+    for a register no lane wrote and that had no value; the others pass
+    through untouched."""
     B, T = launch.num_blocks, launch.block_size
     prog = launch.program
     rdt = segment_reg_dtypes(stmts)
@@ -667,5 +671,9 @@ def run_segment_plain(stmts: Sequence[ir.Stmt], state: HostState,
             written[name][sl] = to_storage(v, rdt[name]).expand(rows, T)
         if shared is not None:
             shared[sl] = to_storage(env.shared, sdt)
-    state.regs = {**state.regs, **written}
+    for name in outputs:
+        if name not in written:
+            written[name] = torch.zeros((B, T), dtype=torch_dtype(rdt[name]),
+                                        device=device)
+    state.regs = {**state.regs, **{n: written[n] for n in outputs}}
     state.shared = shared

@@ -10,10 +10,13 @@ on the same device.
 
 Register contract (shared with interp and cuda): hetIR registers read as
 **zero** until first written, and registers in the incoming state that the
-segment does not touch pass through unchanged.
+segment does not write back pass through unchanged.  It writes back what
+the CUDA kernel writes: the registers it defines that are live after it
+(:func:`~repro_torch.core.liveness.segment_outputs`).
 """
 from __future__ import annotations
 
+from ..liveness import live_out, segment_outputs
 from ..segments import SegNode
 from .base import Backend, HostState, Launch
 from .semantics import run_segment_plain, serial_segment
@@ -28,4 +31,5 @@ class VectorizedBackend(Backend):
         # computed once per segment and cached like a translation
         serial = self.cache.get_or_translate(
             self._cache_key(seg, launch), lambda: serial_segment(seg))
-        run_segment_plain(seg.stmts, state, launch, serial, self.device)
+        run_segment_plain(seg.stmts, state, launch, serial, self.device,
+                          segment_outputs(seg, live_out(launch.program, seg)))

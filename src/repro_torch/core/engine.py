@@ -24,8 +24,11 @@ everything between segments (barrier semantics, loop back-edges,
 cooperative pause flags, snapshot / resume) lives here and is therefore
 **identical across backends** — which is precisely what makes
 cross-backend migration (§6.3) sound.  Between segments the engine also
-prunes registers no later segment reads, the paper's §8 "only saving live
-registers" snapshot-size optimization.
+prunes registers no later node may read (per-node liveness,
+:mod:`~repro_torch.core.liveness`), the paper's §8 "only saving live
+registers" snapshot-size optimization — the same set the CUDA kernels
+write out, so a port snapshot holds at most the registers the reference's
+holds at the same barrier.
 
 State stays on the backend's device between segments (torch tensors);
 only :meth:`Engine.snapshot` moves it to host numpy, and
@@ -41,10 +44,11 @@ import torch
 from . import hetir as ir
 from .backends.base import (Backend, HostState, Launch, to_numpy, to_tensor,
                             torch_dtype)
+from .liveness import live_in
 from .passes import (DEFAULT_OPT_LEVEL, OPT_MAX, SPECIALIZATION_POLICY,
                      get_optimized, get_specialized)
 from .segments import (LoopEnd, LoopStart, Node, SegNode, dynamic_op_count,
-                       resolve_trip_count, segment_program)
+                       program_nodes, resolve_trip_count)
 from .state import Snapshot
 
 
@@ -105,11 +109,7 @@ class Engine:
         # identities are stable across launches — the shared translation
         # cache keys on the program fingerprint + segment index
         # (paper §4.2: "the runtime caches these translated kernels")
-        nodes = getattr(opt_prog, "_nodes_cache", None)
-        if nodes is None:
-            nodes = segment_program(opt_prog)
-            opt_prog._nodes_cache = nodes
-        self.nodes = nodes
+        self.nodes = program_nodes(opt_prog)
         self.launch = Launch(opt_prog, num_blocks, block_size,
                              scalars=scalars, opt_level=self.opt_level,
                              spec_key=self.spec_key, buffer_shapes=shapes)
@@ -129,15 +129,10 @@ class Engine:
         # re-bind the same live buffer — identity survives checkpoints.
         self.buffer_uids: Dict[str, Optional[str]] = {}
 
-        # registers that any segment reads — everything else is dead between
-        # segments and gets pruned from state (the paper's "only saving live
+        # registers live on entry to each node — everything else is dead
+        # there and gets pruned from state (the paper's "only saving live
         # registers" snapshot-size optimization, §8 Scalability)
-        self._live: set = set()
-        for n in self.nodes:
-            if isinstance(n, SegNode):
-                self._live.update(r.name for r in n.uses)
-            elif isinstance(n, LoopStart):
-                self._live.add(n.var.name)
+        self._live_in = live_in(opt_prog)
 
         if _from_snapshot:
             return
@@ -193,9 +188,9 @@ class Engine:
                                              self.launch.scalars)
                     self._node_sched[self.node_idx] = sched
                 self.executed_ops += sched
-                self._prune_dead_regs()
                 executed += 1
                 self.node_idx += 1
+                self._prune_dead_regs()
                 # a barrier boundary — the paper's cooperative pause point
                 yield_req = (on_segment is not None and on_segment(self))
                 if self.node_idx < len(self.nodes):
@@ -248,17 +243,20 @@ class Engine:
 
     def _zero_fill_skipped_defs(self, lo: int, hi: int) -> None:
         shape = (self.launch.num_blocks, self.launch.block_size)
+        live = self._live_in[hi + 1]        # where the walk goes on
         for n in self.nodes[lo:hi]:
             if isinstance(n, SegNode):
                 for r in n.defs:
-                    if r.name in self._live and r.name not in self.state.regs:
+                    if r.name in live and r.name not in self.state.regs:
                         self.state.regs[r.name] = torch.zeros(
                             shape, dtype=torch_dtype(r.dtype),
                             device=self.backend.device)
 
     def _prune_dead_regs(self) -> None:
+        """Drop the registers not live on entry to the next node."""
+        live = self._live_in[self.node_idx]
         self.state.regs = {k: v for k, v in self.state.regs.items()
-                           if k in self._live}
+                           if k in live}
 
     # ------------------------------------------------------------------
     def snapshot(self) -> Snapshot:
@@ -310,6 +308,9 @@ class Engine:
             globals_={k: torch.from_numpy(np.array(v)).to(dev)
                       for k, v in snap.globals_.items()},
         )
+        # a snapshot of the reference holds every register some segment
+        # reads; keep those live here
+        eng._prune_dead_regs()
         eng.finished = eng.node_idx >= len(eng.nodes)
         return eng
 

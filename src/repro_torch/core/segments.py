@@ -220,5 +220,16 @@ def segment_program(prog: ir.Program) -> List[Node]:
     return nodes
 
 
+def program_nodes(prog: ir.Program) -> List[Node]:
+    """The optimized program's node list, memoized on the program so that
+    node identities (and the translation-cache keys built on their
+    indices) are stable across launches."""
+    nodes = getattr(prog, "_nodes_cache", None)
+    if nodes is None:
+        nodes = segment_program(prog)
+        prog._nodes_cache = nodes
+    return nodes
+
+
 def seg_nodes(nodes: Sequence[Node]) -> List[SegNode]:
     return [n for n in nodes if isinstance(n, SegNode)]

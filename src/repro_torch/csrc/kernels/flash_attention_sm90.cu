@@ -262,58 +262,16 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
-// the library needs no -lcuda
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [BH, S, d] bf16 as a 3-D tensor map, boxes of 64 columns x `rows` rows
-int encode(CUtensorMap* map, const void* ptr, int BH, int S, int d,
-           int rows) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return 1000;
-  cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)BH};
-  cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
-  cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  cuuint32_t estr[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                  const_cast<void*>(ptr), dims, strides, box, estr,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
-}
-
 template <int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Sq, int Sk, int d, int causal, int window, float scale,
            cudaStream_t s) {
   constexpr int bytes = smem_bytes<DMAX>();
+  // [B H, S, d] in boxes of 64 columns x the tile's rows
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, q, B * H, Sq, d, BQ);
-  if (!err) err = encode(&tk, k, B * H, Sk, d, kv_rows<DMAX>());
-  if (!err) err = encode(&tv, v, B * H, Sk, d, kv_rows<DMAX>());
+  int err = encode_bf16_3d(&tq, q, d, Sq, B * H, 64, BQ);
+  if (!err) err = encode_bf16_3d(&tk, k, d, Sk, B * H, 64, kv_rows<DMAX>());
+  if (!err) err = encode_bf16_3d(&tv, v, d, Sk, B * H, 64, kv_rows<DMAX>());
   if (err) return err;
   auto kernel = flash_fwd_sm90<DMAX>;
   cudaError_t e = cudaFuncSetAttribute(

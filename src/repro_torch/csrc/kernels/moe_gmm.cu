@@ -3,7 +3,9 @@
 // below counts[e]) are computed, the others are exact zeros.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/moe_gmm/kernel.py
-// (moe_gmm_fwd, pl.pallas_call at :56).  There the grid (E, nc, nf, nd)
+// (moe_gmm_fwd, pl.pallas_call at :56) for f32 inputs and for bf16 inputs
+// that TMA cannot load (D or F not a multiple of 8, unaligned tensors);
+// the other bf16 inputs go to moe_gmm_sm90.cu.  There the grid (E, nc, nf, nd)
 // runs the contraction tiles in order and carries the f32 accumulator in
 // VMEM scratch, with counts prefetched into SMEM; here one block per
 // (expert, 64-row tile, 64-column tile) loops over D in slices of 16, the
@@ -16,9 +18,9 @@
 // other kernels of the package.
 //
 // Bound on this card: at granite-moe's shapes (E = 40, C = 1024, D = 1536,
-// F = 512) the work is a bf16 product whose bound is the bytes; this
-// kernel multiplies on the CUDA cores in f32 (no wgmma yet), so it is bound
-// by their rate and by shared-memory reads, far from either bound.
+// F = 512) an f32 product is bound by the CUDA cores' f32 rate (no TF32:
+// f32 results are held to 1e-4); this kernel also waits on shared-memory
+// reads, two barriers per 16-wide slice of D.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 

@@ -21,8 +21,8 @@ from ..core.backends import nvcc_build
 #: every kernel package, by the name of its ``.cu`` file
 KERNELS = ("flash_attention", "moe_gmm", "rglru_scan", "mlstm_chunk")
 #: every ``.cu`` file of the package: the packages' kernels and the bf16
-#: flash attention kernel for Hopper's tensor cores
-SOURCES = KERNELS[:1] + ("flash_attention_sm90",) + KERNELS[1:]
+#: flash attention and grouped matmul kernels for Hopper's tensor cores
+SOURCES = KERNELS + ("flash_attention_sm90", "moe_gmm_sm90")
 #: the element-type code the launchers take
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 FLOATS = tuple(DTYPE_CODE)

@@ -5,11 +5,21 @@
 row at or past ``counts[e]``) skip the product and stay zero (capacity
 buckets are padded; dispatch guarantees rows >= counts are zero).
 
-Port of ``src/repro/kernels/moe_gmm/kernel.py`` (``moe_gmm_fwd``).  The
-CUDA kernel (``csrc/kernels/moe_gmm.cu``) is a shared-memory tiled GEMM, one
-block per (expert, 64-row tile, 64-column tile) looping over ``D``; the
-block reads ``counts[e]`` itself and computes exactly the rows of the live
-``bc``-row tiles, so it gives what the Pallas kernel gives for any ``bc``.
+Port of ``src/repro/kernels/moe_gmm/kernel.py`` (``moe_gmm_fwd``).  Two
+CUDA kernels, routed by type and shape before the launch; each reads
+``counts[e]`` itself and computes exactly the rows of the live ``bc``-row
+tiles, so each gives what the Pallas kernel gives for any ``bc``:
+
+* bf16 whose rows TMA can load (``D`` and ``F`` multiples of 8, ``x`` and
+  ``w`` 16-byte aligned): ``csrc/kernels/moe_gmm_sm90.cu``, one block per
+  (expert, 128-row tile, 256-column tile): a producer warp loads the x and
+  w tiles by TMA into a four-stage ring, two consumer warpgroups multiply
+  with ``wgmma`` into f32 accumulators (the Pallas body's bf16 x bf16 ->
+  f32 dot).  Launches counted in ``moe_gmm_fwd.sm90_launches``.
+* f32, and bf16 that TMA cannot load: ``csrc/kernels/moe_gmm.cu``, a
+  shared-memory tiled GEMM on the CUDA cores in IEEE f32 (no TF32: f32
+  results are held to 1e-4), one block per (expert, 64-row tile, 64-column
+  tile) looping over ``D``.  Launches counted in ``moe_gmm_fwd.launches``.
 """
 from __future__ import annotations
 
@@ -59,6 +69,12 @@ def moe_gmm_fwd(x, w, counts, *, bc: int = 128, bf: int = 128,
         raise ValueError(f"bc={bc}: the row tile needs at least one row")
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     P, I = _cuda.P, _cuda.I
+    if tma_loadable(x, w):
+        _cuda.launch("moe_gmm_sm90", [P, P, P, P, I, I, I, I, I], x.device,
+                     x.data_ptr(), w.data_ptr(), counts.data_ptr(),
+                     out.data_ptr(), E, C, D, F, min(bc, C))
+        moe_gmm_fwd.sm90_launches += 1
+        return out
     _cuda.launch("moe_gmm", [P, P, P, P, I, I, I, I, I, I], x.device,
                  x.data_ptr(), w.data_ptr(), counts.data_ptr(),
                  out.data_ptr(), E, C, D, F, min(bc, C),
@@ -67,5 +83,16 @@ def moe_gmm_fwd(x, w, counts, *, bc: int = 128, bf: int = 128,
     return out
 
 
-#: kernel launches (the plain version launches nothing)
+def tma_loadable(x, w) -> bool:
+    """Does ``moe_gmm_sm90`` take these inputs?  bf16, row strides in
+    multiples of 16 bytes (``D`` and ``F`` multiples of 8) and 16-byte
+    aligned tensors, as TMA loads them."""
+    return x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0 \
+        and w.shape[-1] % 8 == 0 \
+        and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+
+
+#: launches of the f32 / CUDA-core kernel and of the bf16 wgmma/TMA kernel
+#: (the plain version launches nothing)
 moe_gmm_fwd.launches = 0
+moe_gmm_fwd.sm90_launches = 0

@@ -4,7 +4,9 @@ uneven shapes that reach the kernels' edges: head widths that are not a
 power of two, kv and q tails, windows, experts with no live row, rows
 past the counts, partial chunks and every chunk build.  Both flash
 attention kernels are here: f32 on the CUDA cores, bf16 on wgmma/TMA
-(every head-width build, held to one bf16 step).
+(every head-width build, held to one bf16 step); and both grouped matmul
+kernels: bf16 on wgmma/TMA where TMA can load the rows, the CUDA-core
+kernel otherwise, each case asserting by launch count which one ran.
 
 Marked ``gpu``: without a CUDA device every test skips.  On a machine with
 one (no jax needed), from the checkout root:
@@ -122,13 +124,54 @@ def test_moe_gmm_kernel_matches_plain(dev, E, C, D, F, bc, dt, zero_dead):
         x[np.arange(C)[None, :] >= counts[:, None]] = 0.0
     x, w = _t(x, dev, dt), _t(rng.normal(size=(E, D, F)), dev, dt)
     c = torch.from_numpy(counts).to(dev)
+    before = (moe_gmm_fwd.launches, moe_gmm_fwd.sm90_launches)
     got = moe_gmm_fwd(x, w, c, bc=bc)
+    # f32, and bf16 with F = 130 (no TMA row stride), stay on moe_gmm.cu
+    assert (moe_gmm_fwd.launches, moe_gmm_fwd.sm90_launches) == \
+        (before[0] + 1, before[1])
     tol = 5e-2 if dt == "bf16" else 1e-4
     _close(got, moe_gmm_plain(x, w, c, bc=bc), tol)
     if zero_dead:
         _close(got, moe_gmm_ref(x, w, c), tol)
     torch.cuda.synchronize()
     assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("E,C,D,F,bc,counts,zero_dead", [
+    # C off the 128-row tile, a k tail (D = 72), F = 136 (a last column
+    # tile of 8), counts of 0, 1, 127 and C
+    (4, 200, 72, 136, 128, [0, 1, 127, 200], True),
+    (3, 256, 64, 128, 32, [128, 129, 256], True),
+    (2, 300, 40, 64, 64, [129, 300], True),
+    (3, 200, 128, 256, 256, [1, 127, 200], True),
+    # rows of a live tile past counts[e] are not zero: computed, not zeroed
+    (2, 256, 72, 136, 64, [100, 37], False),
+    # granite-moe-3b-a800m's expert widths
+    (4, 1024, 1536, 512, 128, [0, 1024, 517, 129], True),
+])
+def test_moe_gmm_sm90_kernel_matches_plain(dev, E, C, D, F, bc, counts,
+                                           zero_dead):
+    rng = np.random.default_rng(5)
+    counts = np.array(counts, np.int32)
+    x = rng.normal(size=(E, C, D)).astype(np.float32)
+    if zero_dead:
+        x[np.arange(C)[None, :] >= counts[:, None]] = 0.0
+    x = _t(x, dev, "bf16")
+    w = _t(rng.normal(size=(E, D, F)) * D ** -0.5, dev, "bf16")
+    c = torch.from_numpy(counts).to(dev)
+    before = (moe_gmm_fwd.launches, moe_gmm_fwd.sm90_launches)
+    got = moe_gmm_fwd(x, w, c, bc=bc)
+    assert (moe_gmm_fwd.launches, moe_gmm_fwd.sm90_launches) == \
+        (before[0], before[1] + 1)
+    _close(got, moe_gmm_plain(x, w, c, bc=bc), 5e-2)
+    if zero_dead:
+        _close(got, moe_gmm_ref(x, w, c), 5e-2)
+    rows = torch.arange(C, device=dev)[None, :]
+    live = torch.clamp((c.long() + bc - 1) // bc * bc, max=C)[:, None]
+    assert bool((got[rows >= live] == 0).all())
+    if not zero_dead:
+        past = (rows >= c[:, None]) & (rows < live)
+        assert bool((got[past] != 0).any())
 
 
 @pytest.mark.parametrize("B,S,D,dt", [(2, 300, 70, "f32"),
