@@ -223,6 +223,26 @@ def smi_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str) -> list:
+    """``(entry, line)`` for each registers and spill line of ``ptxas -v``
+    output, the entry function as ``name<template arguments>`` (mangled:
+    ``Li128E`` is the int 128, ``Lb1E`` true, ``f`` float)."""
+    import re
+    found, entry = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"entry function '_ZN?([^']+)'", line)
+        if m:   # (<length><identifier>)+ [I<arguments>E] E v ...
+            name, rest = "?", m.group(1)
+            while rest[:1].isdigit():
+                n = re.match(r"\d+", rest).group()
+                name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+            entry = f"{name}<{rest[1:rest.find('EEv')]}>" \
+                if rest.startswith("I") else name
+        elif "registers" in line or "spill" in line:
+            found.append((entry, line.split(":", 1)[-1].strip()))
+    return found
+
+
 def run_launch(session, prog, grid, block, args, outs):
     """One launch through the driver API; returns (record, host outputs)."""
     from repro_torch.core import hetir as ir
@@ -694,12 +714,13 @@ def main() -> int:
           f"{built['seconds']:.1f} s for {len(optimized)} optimized programs "
           f"and the {len(kernel_lib.SOURCES)} hand-written kernels (one "
           "nvcc per source, one per CPU core at a time)")
-    # ptxas's report of the tensor-core kernels: registers and spills
-    for name in ("flash_attention_sm90", "moe_gmm_sm90"):
+    # ptxas's report of the attention and grouped matmul kernels (the f32
+    # register-tiled ones and the tensor-core ones): registers and spills
+    for name in ("flash_attention", "flash_attention_sm90", "moe_gmm",
+                 "moe_gmm_sm90"):
         log = built["logs"].get(nvcc_build.kernel_job(name)[1], "")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"# ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        for fn, line in ptxas_report(log):
+            print(f"# ptxas {name} {fn}: {line}")
 
     # -- phase 1: every kernel against its plain version and the oracle ---------
     for name in names:
@@ -974,6 +995,12 @@ def main() -> int:
               f"{plain_ms:.4f} ms, library call {lib_txt}, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({c.nbytes} B, {c.ops:.6g} "
               f"operations) on {smi}")
+        if c.ops_rate == F32_OPS_PER_S and bound_by == "operations":
+            # the f32 products on the CUDA cores: rate and share of the bound
+            dms = dev_ms or ms
+            print(f"#   {c.ops / dms / 1e9:.2f} TFLOP/s of f32 in "
+                  f"{dms:.4f} ms ({'device' if dev_ms else 'events'}), "
+                  f"{bound_ms / dms:.4f} of the f32 bound")
         if any(k["name"] == c.kernel for k in kernels):
             continue
         kernels.append(

@@ -19,9 +19,15 @@ the head with zeros:
   8 (TMA strides are multiples of 16 bytes).  Launches counted in
   ``flash_attention_fwd.sm90_launches``.
 * f32: ``csrc/kernels/flash_attention.cu`` on the CUDA cores in IEEE f32
-  (no TF32: f32 results are held to 2e-5), one block per (batch, head,
-  64-row q tile) over 32-row kv tiles.  Launches counted in
-  ``flash_attention_fwd.launches``.
+  (no TF32: f32 results are held to 2e-5), register-tiled over
+  ``csrc/kernels/simt_f32.cuh``: one 256-thread block per (batch, head,
+  q tile) — 128 query rows over 64-key tiles for ``d <= 64`` and ``<=
+  128``, 64 rows over 32-key tiles for ``d <= 256`` — a thread owning 8
+  (or 4) rows' scores and outputs in registers, q, K, V and P read from
+  shared memory as float4, K and V tiles double-buffered by ``cp.async``
+  (one barrier per kv tile), causal q tiles heaviest first.  One block
+  per SM: 131, 227 and 201.5 KB of shared memory by build.  Launches
+  counted in ``flash_attention_fwd.launches``.
 
 ``bq`` and ``bk`` are the Pallas tiles, kept by the plain version; on the
 card they do not change the result (a tile that is skipped or not gives

@@ -17,9 +17,13 @@ tiles, so each gives what the Pallas kernel gives for any ``bc``:
   with ``wgmma`` into f32 accumulators (the Pallas body's bf16 x bf16 ->
   f32 dot).  Launches counted in ``moe_gmm_fwd.sm90_launches``.
 * f32, and bf16 that TMA cannot load: ``csrc/kernels/moe_gmm.cu``, a
-  shared-memory tiled GEMM on the CUDA cores in IEEE f32 (no TF32: f32
-  results are held to 1e-4), one block per (expert, 64-row tile, 64-column
-  tile) looping over ``D``.  Launches counted in ``moe_gmm_fwd.launches``.
+  register-tiled GEMM on the CUDA cores in IEEE f32 (no TF32: f32 results
+  are held to 1e-4) over ``csrc/kernels/simt_f32.cuh``: one 256-thread
+  block per (expert, 128-row tile, 128-column tile), 8 x 8 outputs a
+  thread, ``D`` in slices of 64 copied by ``cp.async`` into two stages
+  (x and w row-major, read as float2 and float4), 132 KB of shared memory:
+  one block per SM, with the registers that leaves it.  Launches counted
+  in ``moe_gmm_fwd.launches``.
 """
 from __future__ import annotations
 

@@ -182,3 +182,28 @@ def test_edge_grids_built_by_either_package_are_the_same_programs():
         assert (grid, block, outs) == (rgrid, rblock, routs)
         for k in args:
             assert same_bits(args[k], rargs[k]), (label, k)
+
+
+def test_ptxas_report_names_each_entry_function():
+    """chip_smoke.py prints each kernel build's registers and spills under
+    the entry function's name and template arguments."""
+    log = (
+        "ptxas info    : Compiling entry function '_ZN76_GLOBAL__N__3b60e1a2"
+        "_43_flash_attention_e33362027cb678609a8efde5_cu_3c24db7316flash_fwd"
+        "_kernelILi128ELb1EEEvPKfS2_S2_Pfiiiiif' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN76_GLOBAL__N__x\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114moe_gmm"
+        "_kernelI13__nv_bfloat16Lb0EEEvPKT_S4_PKiPS2_iiii' for 'sm_90a'\n"
+        "ptxas info    : Used 125 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z5plainPf' for 'sm_90a'\n"
+        "ptxas info    : Used 8 registers\n")
+    assert chip_smoke.ptxas_report(log) == [
+        ("flash_fwd_kernel<Li128ELb1E>",
+         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+        ("flash_fwd_kernel<Li128ELb1E>",
+         "Used 255 registers, used 1 barriers"),
+        ("moe_gmm_kernel<13__nv_bfloat16Lb0E>",
+         "Used 125 registers, used 1 barriers"),
+        ("plain", "Used 8 registers")]

@@ -190,6 +190,15 @@ def test_real_kernel_sources_hash_their_headers():
         [nvcc_build.CSRC / "hetir_rt.cuh"]
 
 
+@pytest.mark.parametrize("name", ["flash_attention", "moe_gmm"])
+def test_f32_kernel_sources_hash_the_simt_header(name):
+    # the register-tiled f32 kernels share their product step: an edit of
+    # simt_f32.cuh rebuilds both
+    src = (nvcc_build.KERNEL_DIR / f"{name}.cu").read_text()
+    assert nvcc_build.local_headers(src) == \
+        [nvcc_build.KERNEL_DIR / "simt_f32.cuh"]
+
+
 def test_new_edge_grids_are_in_the_card_run():
     labels = dict(edge.all_cases(ref_ir))
     assert {"reduce_max_ties", "staged_window"} <= set(labels)

@@ -3,10 +3,13 @@ each held against its plain PyTorch version on the same card, at small and
 uneven shapes that reach the kernels' edges: head widths that are not a
 power of two, kv and q tails, windows, experts with no live row, rows
 past the counts, partial chunks and every chunk build.  Both flash
-attention kernels are here: f32 on the CUDA cores, bf16 on wgmma/TMA
-(every head-width build, held to one bf16 step); and both grouped matmul
-kernels: bf16 on wgmma/TMA where TMA can load the rows, the CUDA-core
-kernel otherwise, each case asserting by launch count which one ran.
+attention kernels are here: f32 on the register-tiled CUDA-core kernel
+(every head-width build, tails off its 128- and 64-row tiles, element
+copies for unaligned rows), bf16 on wgmma/TMA (every head-width build,
+held to one bf16 step); and both grouped matmul kernels: bf16 on
+wgmma/TMA where TMA can load the rows, the CUDA-core kernel otherwise
+(f32 and the other bf16), each case asserting by launch count which one
+ran.
 
 Marked ``gpu``: without a CUDA device every test skips.  On a machine with
 one (no jax needed), from the checkout root:
@@ -78,6 +81,20 @@ BF16_ATTN_TOL = (1e-3, 2.0 ** -7)
     (1, 2, 333, 333, 256, False, 7, "bf16"),
     (1, 2, 257, 257, 256, True, 1, "bf16"),
     (3, 1, 100, 70, 120, False, None, "bf16"),
+    # f32, the register-tiled CUDA-core kernel: every head-width build (d
+    # <= 64 and <= 128 on 128-row q tiles and 64-key tiles, d <= 256 on 64
+    # and 32), q and kv tails off those tiles, Sq != Sk, windows of 1, 7
+    # and one whose band edge crosses a kv tile, B * H > 1
+    (1, 1, 127, 127, 32, True, None, "f32"),
+    (2, 3, 129, 129, 64, True, None, "f32"),
+    (1, 2, 257, 257, 120, True, 1, "f32"),
+    (1, 1, 333, 333, 128, True, None, "f32"),
+    (2, 2, 129, 129, 200, True, 7, "f32"),
+    (1, 2, 333, 333, 256, True, 100, "f32"),
+    (1, 1, 300, 300, 128, True, 70, "f32"),
+    (1, 1, 257, 257, 256, False, 33, "f32"),
+    (2, 1, 190, 250, 128, False, None, "f32"),
+    (1, 2, 333, 129, 64, False, None, "f32"),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, H, Sq, Sk, d, causal,
                                               window, dt):
@@ -109,6 +126,74 @@ def test_flash_attention_bf16_refuses_what_tma_cannot_load(dev):
     odd = buf[1:].view(1, 1, 64, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention_fwd(odd, odd, odd)
+
+
+def _view_off_16_bytes(t):
+    """``t``'s values in a tensor that starts 4 bytes past a 16-byte
+    boundary: the kernels' element-by-element copies."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("d,causal,window", [(61, True, None),
+                                             (128, False, 7)])
+def test_flash_attention_f32_element_copies_match_plain(dev, d, causal,
+                                                        window):
+    # d % 4 != 0 or an unaligned tensor: 4-byte cp.async copies and stores
+    rng = np.random.default_rng(6)
+    q, k, v = (_view_off_16_bytes(_t(rng.normal(size=(2, 1, 150, d)), dev))
+               for _ in range(3))
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert flash_attention_fwd.launches == before + 1
+    _close(got, flash_attention_plain(q, k, v, causal=causal,
+                                      window=window), 2e-5)
+    _close(got, attention_ref(q, k, v, causal=causal, window=window), 2e-5)
+
+
+@pytest.mark.parametrize("E,C,D,F,bc,counts,dt,zero_dead,unaligned", [
+    # C < 128; D off the 64-wide slice; F off the 128-column tile; bc of
+    # 32, 48 and 128; counts 0, C and in between
+    (3, 100, 72, 200, 32, [0, 100, 45], "f32", True, False),
+    (4, 300, 36, 136, 48, [0, 300, 49, 144], "f32", True, False),
+    (3, 256, 44, 64, 128, [1, 256, 129], "f32", True, False),
+    (2, 200, 40, 130, 48, [70, 200], "f32", False, False),
+    # several 64-wide slices of D, the last one partial
+    (2, 130, 300, 72, 32, [64, 130], "f32", True, False),
+    # element-by-element loads: D % 4 != 0, F % 4 != 0, unaligned x
+    (2, 150, 33, 90, 32, [0, 97], "f32", True, False),
+    (2, 130, 64, 64, 128, [5, 130], "f32", True, True),
+    # bf16 that TMA cannot load (F % 8 != 0)
+    (3, 150, 36, 90, 48, [0, 70, 150], "bf16", True, False),
+])
+def test_moe_gmm_cuda_core_tiles_match_plain(dev, E, C, D, F, bc, counts, dt,
+                                             zero_dead, unaligned):
+    rng = np.random.default_rng(7)
+    counts = np.array(counts, np.int32)
+    x = rng.normal(size=(E, C, D)).astype(np.float32)
+    if zero_dead:
+        x[np.arange(C)[None, :] >= counts[:, None]] = 0.0
+    x = _t(x, dev, dt)
+    if unaligned:
+        x = _view_off_16_bytes(x)
+    w = _t(rng.normal(size=(E, D, F)) * D ** -0.5, dev, dt)
+    c = torch.from_numpy(counts).to(dev)
+    before = (moe_gmm_fwd.launches, moe_gmm_fwd.sm90_launches)
+    got = moe_gmm_fwd(x, w, c, bc=bc)
+    assert (moe_gmm_fwd.launches, moe_gmm_fwd.sm90_launches) == \
+        (before[0] + 1, before[1])
+    tol = 5e-2 if dt == "bf16" else 1e-4
+    _close(got, moe_gmm_plain(x, w, c, bc=bc), tol)
+    if zero_dead:
+        _close(got, moe_gmm_ref(x, w, c), tol)
+    rows = torch.arange(C, device=dev)[None, :]
+    live = torch.clamp((c.long() + bc - 1) // bc * bc, max=C)[:, None]
+    assert bool((got[(rows >= live).expand(E, C)] == 0).all())
+    if not zero_dead:   # rows past counts[e] in a live tile are computed
+        past = (rows >= c[:, None]) & (rows < live)
+        assert bool((got[past] != 0).any())
 
 
 @pytest.mark.parametrize("E,C,D,F,bc,dt,zero_dead", [
