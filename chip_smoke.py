@@ -12,9 +12,10 @@ card) and against the NumPy oracles:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the ``nvcc`` build of every segment library used below (one ``nvcc``
-   per optimized program) and of the six hand-written kernels of
-   ``repro_torch.kernels`` (one ``nvcc`` per source), in one batch that
-   runs one ``nvcc`` per CPU core at a time;
+   per optimized program and lanes a thread) and of the six hand-written
+   kernels of ``repro_torch.kernels`` (one ``nvcc`` per source), in one
+   batch that runs one ``nvcc`` per CPU core at a time, with ``ptxas``'s
+   registers and spills of every hand-written kernel's builds;
 1. all 17 suite and 4 zoo kernels at their canonical launch, at O0 and
    OPT_MAX: bits equal to the plain version on the card and to the NumPy
    interpreter on the CPU (NaN compared as NaN), within 1e-5 of the suite
@@ -23,7 +24,11 @@ card) and against the NumPy oracles:
    tests); then the one-op edge-grid programs of
    ``repro_torch.core.edge_grids`` (DIV/MOD/shifts/casts/MIN/MAX on edge
    values, folds of ``-0.0``, folds and votes under divergence, atomic and
-   store order), bits equal to the plain version and the interpreter;
+   store order, shuffles), bits equal to the plain version and the
+   interpreter; then the programs with cross-lane ops (folds, scans,
+   votes, ``REDUCE_MAX`` ties, atomics, shuffles, and the suite's
+   reduction, scan, vote and dot product) in blocks of 2048 lanes, two to
+   a thread of the scalar kernels, bits equal likewise;
 2. full width, scalar path: one ``attn_decode`` step at Llama 3.2 3B's 24
    query heads of width 128 over a 4096-token window (K and V 48 MiB each),
    bits equal to the zoo oracle and to the plain version; then a second
@@ -51,9 +56,13 @@ card) and against the NumPy oracles:
    experts (40 x 1024 rows x 1536 -> 512, seeded counts with an empty and
    a full expert; bf16 on the wgmma/TMA kernel, f32 on the CUDA-core one,
    each with its own launch count); the RG-LRU scan at recurrentgemma-2b's
-   width (4096 steps x 2560 channels, bf16); the mLSTM chunk kernel at
+   width (4096 steps x 2560 channels, bf16); the mLSTM chunk kernels at
    xlstm-125m's width (32 batch-heads x 4096 steps, dk = dv = 384, f32,
-   bt 128).  Each result is held against the kernel's plain version and
+   bt 128), with the operations they execute against the bound's; and the
+   domain the port repaired: bf16 attention that TMA cannot load (d =
+   100, 4 bytes off 16-byte alignment: the CUDA-core kernel's bf16
+   build), a head of 320 (its wide build), the mLSTM with chunks of 256
+   and keys of 704.  Each result is held against the kernel's plain version and
    the torch oracle on the card, at the JAX tests' tolerances in the
    working type (grouped matmul 5e-2 bf16, 1e-4 f32) — except bf16
    attention, held to one bf16 step (``BF16_ATTN_TOL``): at 4096 tokens
@@ -61,7 +70,8 @@ card) and against the NumPy oracles:
    that oracles with a planted mask error (a band one key short or long,
    late rows missing their first kv tile) fall outside its tolerance;
    empty experts must be exact zeros, the scan bit-equal,
-   the mLSTM kernel at bt 32 within 1e-3 of bt 128; one small gradient per
+   the mLSTM kernels at bt 32 within 1e-3 of bt 128 and executing at most
+   1.15 times the bound's operations; one small gradient per
    op through its ``autograd.Function`` against autograd of the oracle;
    and ``het_kernel`` runs a suite program on the card bit-equal to
    ``het_kernel_ref``.
@@ -167,6 +177,15 @@ RG_B, RG_S, RG_D = 1, 4096, 2560
 #: xlstm-125m mLSTM: 4 heads of (2 * 768) / 4 = 384 keys and values, a
 #: batch of 8 sequences of 4096 steps, chunks of 128
 ML_BH, ML_S, ML_DK, ML_BT = 8 * 4, 4096, 384, 128
+#: the port's repaired domain (phase 5): bf16 flash attention that TMA
+#: cannot load (d = 100, tensors 4 bytes off 16-byte alignment) and a head
+#: wider than 256, at 8 heads over 2048 tokens; the mLSTM with chunks of
+#: 256 steps (run as 128) and keys of 704, at 2 batch-heads of 1024 steps
+REPAIR_H, REPAIR_S, REPAIR_D_BF16, REPAIR_D_WIDE = 8, 2048, 100, 320
+REPAIR_ML_BH, REPAIR_ML_S, REPAIR_ML_DK, REPAIR_ML_DV, REPAIR_ML_BT = \
+    2, 1024, 704, 64, 256
+#: the hetIR block of phase 1's wide launches: two lanes a CUDA thread
+WIDE_BLOCK = 2048
 #: bf16 attention outputs, (atol, rtol): the kernel, its plain version and
 #: the oracle all round an f32 result to bf16, and f32 sums in another
 #: order round at most one bf16 step (2^-7 of the value) apart; 1e-3
@@ -176,11 +195,17 @@ BF16_ATTN_TOL = (1e-3, 2.0 ** -7)
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:98",
     "flash_attention_sm90": "src/repro/kernels/flash_attention/kernel.py:98",
+    "flash_attention_bf16": "src/repro/kernels/flash_attention/kernel.py:98",
+    "flash_attention_wide": "src/repro/kernels/flash_attention/kernel.py:98",
     "moe_gmm": "src/repro/kernels/moe_gmm/kernel.py:47",
     "moe_gmm_sm90": "src/repro/kernels/moe_gmm/kernel.py:47",
     "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:54",
     "mlstm_chunk": "src/repro/kernels/mlstm_chunk/kernel.py:79",
 }
+#: the CUDA source of each kernel in the kernels line (the bf16 and wide
+#: flash builds are builds of flash_attention.cu)
+KERNEL_SOURCE = {"flash_attention_bf16": "flash_attention",
+                 "flash_attention_wide": "flash_attention"}
 
 
 class SmokeFailure(Exception):
@@ -347,13 +372,23 @@ def print_profile(what: str, by_name: dict, launch_ms: float) -> None:
         print(f"#   {ms:.4f} ms  {name[:90]}")
 
 
-def check_edge_grids(dev) -> int:
-    """Every edge-grid program through ``HetSession("cuda")`` on ``dev``,
-    bits equal to the plain version on ``dev`` and to the interpreter on
-    the CPU (NaN as NaN); returns the number of programs."""
+def wide_cases(block: int) -> list:
+    """(label, case) of the programs with cross-lane ops in blocks of
+    ``block`` lanes: the edge grids' and the suite's."""
+    from repro_torch.core import edge_grids
+    return list(edge_grids.wide_cases(block)) + [
+        (name, edge_grids.wide_suite_case(name, block))
+        for name in edge_grids.WIDE_SUITE]
+
+
+def check_edge_grids(dev, cases=None) -> int:
+    """Every edge-grid program (or every one of ``cases``) through
+    ``HetSession("cuda")`` on ``dev``, bits equal to the plain version on
+    ``dev`` and to the interpreter on the CPU (NaN as NaN); returns the
+    number of programs."""
     from repro_torch.core import HetSession, TranslationCache
     from repro_torch.core import edge_grids
-    cases = list(edge_grids.all_cases())
+    cases = list(edge_grids.all_cases()) if cases is None else cases
     for label, (prog, grid, block, args, outs) in cases:
         got = {}
         for backend, device in (("cuda", dev), ("vectorized", dev),
@@ -453,7 +488,7 @@ def library_cases(dev) -> list:
 
     cases = []
 
-    def flash(label, q, k, v, window, library):
+    def flash(label, q, k, v, window, library, kernel=None):
         B, H, S, d = q.shape
         rate = BF16_OPS_PER_S if q.dtype == bf16 else F32_OPS_PER_S
         if window is None:   # rows S-32.. miss up to 32 of their first keys
@@ -467,7 +502,8 @@ def library_cases(dev) -> list:
                        for what, dw in (("short", -1), ("long", 1))]
         # bf16 runs on the wgmma/TMA kernel, f32 on the CUDA-core one
         cases.append(LibCase(
-            "flash_attention_sm90" if q.dtype == bf16 else "flash_attention",
+            kernel or ("flash_attention_sm90" if q.dtype == bf16
+                       else "flash_attention"),
             label,
             lambda: flash_attention(q, k, v, True, window),
             lambda: fa.flash_attention_fwd(q, k, v, causal=True,
@@ -538,22 +574,58 @@ def library_cases(dev) -> list:
         _nbytes(a, xr, a, h0, h0), 2.0 * RG_B * RG_S * RG_D,
         F32_OPS_PER_S))
 
-    q, k, v = (randn(ML_BH, ML_S, ML_DK, scale=0.5) for _ in range(3))
-    lf = torch.log(uniform(0.9, 0.999, ML_BH, ML_S, 1))
-    gi = uniform(0.1, 1.0, ML_BH, ML_S, 1)
-    n, dk = ML_BT, ML_DK
-    # multiply-adds of a chunk: q k^T and (s * decay) v over the causal
-    # triangle of n(n+1)/2 pairs, q @ C and the state update k^T v in full
-    per_chunk = 2 * (2 * (n * (n + 1) // 2) * dk + 2 * n * dk * dk)
-    cases.append(LibCase(
-        "mlstm_chunk", "xlstm-125m mLSTM, f32, bt 128",
-        lambda: mlstm_chunk(q, k, v, lf, gi),
-        lambda: ml.mlstm_chunk_fwd(q, k, v, lf, gi, bt=ML_BT),
-        lambda: ml.mlstm_chunk_plain(q, k, v, lf, gi, bt=ML_BT),
-        lambda: mlstm_chunk_ref(q, k, v, lf, gi), 2e-3,
-        _nbytes(q, k, v, lf, gi, q) + ML_BH * dk * dk * 4,
-        float(per_chunk) * ML_BH * (ML_S // ML_BT), F32_OPS_PER_S,
-        retiled=lambda: ml.mlstm_chunk_fwd(q, k, v, lf, gi, bt=32)))
+    def mlstm(label, BH, S, dk, dv, bt, retiled):
+        q, k = (randn(BH, S, dk, scale=0.5) for _ in range(2))
+        v = randn(BH, S, dv, scale=0.5)
+        lf = torch.log(uniform(0.9, 0.999, BH, S, 1))
+        gi = uniform(0.1, 1.0, BH, S, 1)
+        n = bt
+        # multiply-adds of a chunk of bt steps: q k^T and (s * decay) v
+        # over the causal triangle of n(n+1)/2 pairs, q @ C and the state
+        # update k^T v in full
+        per_chunk = 2 * ((n * (n + 1) // 2) * (dk + dv) + 2 * n * dk * dv)
+        case = LibCase(
+            "mlstm_chunk", label,
+            lambda: mlstm_chunk(q, k, v, lf, gi, bt),
+            lambda: ml.mlstm_chunk_fwd(q, k, v, lf, gi, bt=bt),
+            lambda: ml.mlstm_chunk_plain(q, k, v, lf, gi, bt=bt),
+            lambda: mlstm_chunk_ref(q, k, v, lf, gi), 2e-3,
+            _nbytes(q, k, v, lf, gi, v) + BH * dk * dv * 4,
+            float(per_chunk) * BH * (S // bt), F32_OPS_PER_S,
+            retiled=(lambda: ml.mlstm_chunk_fwd(q, k, v, lf, gi, bt=32))
+            if retiled else None)
+        # what the three kernels execute, tiles and padding included
+        case.executed = ml.executed_ops(BH, S, dk, dv, bt)
+        cases.append(case)
+
+    mlstm("xlstm-125m mLSTM, f32, bt 128", ML_BH, ML_S, ML_DK, ML_DK, ML_BT,
+          True)
+
+    # the repaired domain, last, so that the cases above draw the inputs
+    # of earlier runs: bf16 that TMA cannot load (d = 100, 4 bytes off
+    # 16-byte alignment) on the CUDA-core kernel's bf16 build, and a head
+    # of 320 on its wide build
+    def off16(t):
+        buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=dev)
+        out = buf[2:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    bqkv = [off16(randn(1, REPAIR_H, REPAIR_S, REPAIR_D_BF16, dtype=bf16))
+            for _ in range(3)]
+    check(all(t.data_ptr() % 16 == 4 for t in bqkv),
+          "the unaligned bf16 inputs are aligned")
+    flash(f"bf16 d={REPAIR_D_BF16}, 4 bytes off 16-byte alignment", *bqkv,
+          None, lambda: tf.scaled_dot_product_attention(*bqkv,
+                                                        is_causal=True),
+          kernel="flash_attention_bf16")
+    wqkv = [randn(1, REPAIR_H, REPAIR_S, REPAIR_D_WIDE) for _ in range(3)]
+    flash(f"f32 d={REPAIR_D_WIDE}", *wqkv, None,
+          lambda: tf.scaled_dot_product_attention(*wqkv, is_causal=True),
+          kernel="flash_attention_wide")
+
+    mlstm(f"mLSTM, f32, bt {REPAIR_ML_BT}, dk {REPAIR_ML_DK}", REPAIR_ML_BH,
+          REPAIR_ML_S, REPAIR_ML_DK, REPAIR_ML_DV, REPAIR_ML_BT, False)
     return cases
 
 
@@ -580,6 +652,12 @@ def check_library_case(c: LibCase) -> None:
         check(_close(c.out, c.retiled(), 1e-3),
               f"{c.label}: bt 32 != bt {ML_BT}")
         also += f"; bt 32 within 1e-3 of bt {ML_BT}"
+        # the redesign's budget: at most 1.15 times the bound's operations
+        check(c.executed <= 1.15 * c.ops,
+              f"{c.label}: the kernels execute {c.executed:.6g} operations, "
+              f"more than 1.15 x the bound's {c.ops:.6g}")
+        also += (f"; executes {c.executed / c.ops:.4f} x the bound's "
+                 "operations")
     for what, call in c.planted:
         bad = call()
         check(not _close(bad, want, c.tol),
@@ -661,7 +739,8 @@ def main() -> int:
     from repro_torch.core import edge_grids
     from repro_torch.core import kernels_suite as ks
     from repro_torch.core.backends import get_backend, nvcc_build
-    from repro_torch.core.backends.cuda_backend import emit_module
+    from repro_torch.core.backends.cuda_backend import (emit_module,
+                                                        lanes_per_thread)
     from repro_torch.kernels import _cuda as kernel_lib
 
     dev = torch.device("cuda", 0)
@@ -706,18 +785,27 @@ def main() -> int:
     for _, (prog, grid, block, args, _) in edge_grids.all_cases():
         optimized.append(
             Engine(prog, builder, grid, block, args, opt_level=0).program)
+    # the wide launches of phase 1: their scalar kernels at two lanes a
+    # thread, in libraries of their own
+    wide = wide_cases(WIDE_BLOCK)
+    lanes = lanes_per_thread(WIDE_BLOCK)
+    wide_optimized = [Engine(prog, builder, grid, block, args,
+                             opt_level=0).program
+                      for _, (prog, grid, block, args, _) in wide]
     # one batch: an nvcc per generated source and per hand-written kernel
     jobs = [nvcc_build.segment_job(emit_module(p)[0]) for p in optimized]
+    jobs += [nvcc_build.segment_job(emit_module(p, lanes)[0])
+             for p in wide_optimized]
     jobs += [nvcc_build.kernel_job(n) for n in kernel_lib.SOURCES]
     built = nvcc_build.build(jobs)
     print(f"# nvcc: {built['built']} libraries built in "
-          f"{built['seconds']:.1f} s for {len(optimized)} optimized programs "
-          f"and the {len(kernel_lib.SOURCES)} hand-written kernels (one "
-          "nvcc per source, one per CPU core at a time)")
-    # ptxas's report of the attention and grouped matmul kernels (the f32
-    # register-tiled ones and the tensor-core ones): registers and spills
-    for name in ("flash_attention", "flash_attention_sm90", "moe_gmm",
-                 "moe_gmm_sm90"):
+          f"{built['seconds']:.1f} s for {len(optimized)} optimized programs, "
+          f"{len(wide_optimized)} more at {lanes} lanes a thread and the "
+          f"{len(kernel_lib.SOURCES)} hand-written kernels (one nvcc per "
+          "source, one per CPU core at a time)")
+    # ptxas's report of every hand-written kernel: registers and spills of
+    # each template build
+    for name in kernel_lib.SOURCES:
         log = built["logs"].get(nvcc_build.kernel_job(name)[1], "")
         for fn, line in ptxas_report(log):
             print(f"# ptxas {name} {fn}: {line}")
@@ -758,6 +846,10 @@ def main() -> int:
           "pinned")
     n_edge = check_edge_grids(dev)
     print(f"phase 1: {n_edge} edge-grid programs: bits equal to the plain "
+          "version and the interpreter")
+    n_wide = check_edge_grids(dev, wide)
+    print(f"phase 1: {n_wide} programs with cross-lane ops in blocks of "
+          f"{WIDE_BLOCK} lanes ({lanes} a thread): bits equal to the plain "
           "version and the interpreter")
 
     # -- phases 2-3: the main path at full width -------------------------------
@@ -850,6 +942,10 @@ def main() -> int:
     counters = {"flash_attention": (flash_attention_fwd, "launches"),
                 "flash_attention_sm90": (flash_attention_fwd,
                                          "sm90_launches"),
+                "flash_attention_bf16": (flash_attention_fwd,
+                                         "simt_bf16_launches"),
+                "flash_attention_wide": (flash_attention_fwd,
+                                         "wide_launches"),
                 "moe_gmm": (moe_gmm_fwd, "launches"),
                 "moe_gmm_sm90": (moe_gmm_fwd, "sm90_launches"),
                 "rglru_scan": (rglru_scan_fwd, "launches"),
@@ -985,10 +1081,18 @@ def main() -> int:
         # the device alone (the profiler's kernel times of one warm call):
         # a call's event time also holds the host's work before the launch
         # when the device is idle
-        dev_ms = sum(profile_launch(c.fwd).values()) or None
+        by_name = profile_launch(c.fwd)
+        dev_ms = sum(by_name.values()) or None
         lib_dev_ms = sum(profile_launch(c.library).values()) or None \
             if c.library is not None else None
         bound_ms, bound_by = c.bound()
+        if len(by_name) > 1:   # a call of several kernels: each one's share
+            for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+                print(f"#   {kms:.4f} ms device  {name[:90]}")
+        if getattr(c, "executed", None):
+            print(f"# {c.label}: the kernels execute {c.executed:.6g} "
+                  f"operations, {c.executed / c.ops:.4f} of the bound's "
+                  f"{c.ops:.6g}")
         lib_txt = "none" if lib_ms is None else \
             f"{lib_ms:.4f} ms (device {lib_dev_ms} ms)"
         print(f"# {c.label}: kernel {ms:.4f} ms (device {dev_ms} ms), plain "
@@ -1005,7 +1109,8 @@ def main() -> int:
             continue
         kernels.append(
             {"name": c.kernel, "route": "cuda",
-             "source": f"src/repro_torch/csrc/kernels/{c.kernel}.cu",
+             "source": "src/repro_torch/csrc/kernels/"
+                       f"{KERNEL_SOURCE.get(c.kernel, c.kernel)}.cu",
              "replaces": REPLACES[c.kernel],
              "launches": lib_launches[c.kernel], "max_abs_err": c.err,
              "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,

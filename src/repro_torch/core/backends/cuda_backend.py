@@ -14,16 +14,21 @@ program (program, opt level and specialization) in one ``nvcc`` call
 at run time — grid, block size, scalars, buffer lengths — stays out of the
 source, so one library serves every launch geometry of the program.
 
-Scalar kernel: one CUDA thread per hetIR lane, one CUDA block per hetIR
-block (``blockDim = T``, at most 1024).  Registers are ``[B, T]`` tensors
-read into locals at entry and written out at exit; the hetIR shared row is
-staged in dynamic ``__shared__`` memory.  The body is if-converted:
+Scalar kernel: one CUDA block per hetIR block, each thread running ``HL =
+⌈T / 1024⌉`` hetIR lanes (``tid + l * blockDim``, ``l < HL``; one lane a
+thread up to 1024, the block then ``T`` threads).  ``HL`` is a constant of
+the generated source, so a register is an array of ``HL`` locals that
+stays in registers; one library per program and ``HL``, built at its first
+launch.  Registers are ``[B, T]`` tensors read into locals at entry and
+written out at exit; the hetIR shared row is staged in dynamic
+``__shared__`` memory.  The body is if-converted:
 predication is an active flag per lane, never a branch around code, so
 all control flow is uniform and ``__syncthreads()`` may stand around every
 store, atomic and collective — which is what reproduces the reference
 interpreter's lock-step order (every lane finishes an op before the next
-op starts).  Stores of one op that may hit one address, ``ATOMIC_ADD`` and
-the float folds of ``REDUCE_ADD``/``SCAN_ADD`` are applied by lane 0 in
+op starts: a thread runs an op for each of its lanes before the op's
+barrier).  Stores of one op that may hit one address, ``ATOMIC_ADD`` and
+the float folds of ``REDUCE_ADD``/``SCAN_ADD`` are applied by thread 0 in
 lane order from a scratch area, so the highest lane wins and every
 rounding happens in the interpreter's order; ``REDUCE_MAX`` is a
 warp-shuffle tree whose ties resolve as that fold's (``het_block_max``).
@@ -80,7 +85,8 @@ from .base import Backend, HostState, Launch, torch_dtype
 from .semantics import (operand_dtype, run_segment_plain, segment_reg_dtypes,
                         serial_segment)
 
-#: the largest hetIR block the scalar kernel takes (one thread per lane)
+#: the most threads a scalar kernel's block runs: a hetIR block of T lanes
+#: runs ``lanes_per_thread(T)`` lanes a thread
 MAX_BLOCK = 1024
 #: lanes a thread of the block kernel runs
 LANES_PER_THREAD = 4
@@ -219,8 +225,10 @@ class _SegmentEmitter:
     (scalar, one CUDA block per hetIR block) or ``"b"`` (block-tiled)."""
 
     def __init__(self, seg: SegNode, prog: ir.Program, slots: SegmentSlots,
-                 mode: str):
+                 mode: str, lanes: int = 1):
         self.seg, self.prog, self.slots, self.mode = seg, prog, slots, mode
+        # hetIR lanes a thread of the scalar kernel runs (HL)
+        self.lanes = lanes
         self.var = {n: f"r{i}" for i, n in enumerate(sorted(slots.reg_dtypes))}
         self.lines: List[str] = []
         self.depth = 2
@@ -261,22 +269,40 @@ class _SegmentEmitter:
         if self.mode == "s":
             self.out("__syncthreads();")
 
+    def lane(self, line: str) -> None:
+        """A statement run for each hetIR lane: in a scalar kernel of
+        several lanes a thread, for each of the thread's ``HL`` lanes
+        (``HET_LANES``, which defines the lane's ``l_``, ``t`` and
+        ``lane``); else as it is (one lane a thread: ``l_`` is 0, ``t``
+        and ``lane`` the thread's)."""
+        several = self.mode == "s" and self.lanes > 1
+        self.out(f"HET_LANES({line})" if several else line)
+
+    def reg(self, name: str) -> str:
+        """Register ``name`` of the current lane: the scalar kernel keeps a
+        register as an array of the thread's ``HL`` lanes."""
+        return f"{self.var[name]}[l_]" if self.mode == "s" else self.var[name]
+
     def val(self, a, dtype: str) -> str:
         if isinstance(a, ir.Reg):
             if a.dtype != dtype:
                 raise NotImplementedError(
                     f"operand %{a.name}:{a.dtype} where {dtype} is expected")
-            return self.var[a.name]
+            return self.reg(a.name)
         return _const(a, dtype)
 
     def idx(self, a) -> str:
         if isinstance(a, ir.Reg):
-            return f"het_idx({self.var[a.name]})"
+            return f"het_idx({self.reg(a.name)})"
         return f"((long long){int(a)})"
 
+    def assign(self, d: ir.Reg, expr: str, vtype: str,
+               m: Optional[str]) -> str:
+        line = f"{self.reg(d.name)} = {_cvt(expr, vtype, d.dtype)};"
+        return line if m is None else f"if ({m}) {line}"
+
     def write(self, d: ir.Reg, expr: str, vtype: str, m: Optional[str]) -> None:
-        line = f"{self.var[d.name]} = {_cvt(expr, vtype, d.dtype)};"
-        self.out(line if m is None else f"if ({m}) {line}")
+        self.lane(self.assign(d, expr, vtype, m))
 
     def lane_unique(self, idx) -> bool:
         """Do the lanes of one hetIR block always store to distinct
@@ -301,10 +327,11 @@ class _SegmentEmitter:
 
     def stage(self, j: int) -> None:
         """Copy staged load ``j``'s window into shared memory (all threads;
-        thread 0 computes where the window starts from its registers)."""
+        thread 0 computes where the window starts from lane 0's
+        registers)."""
         ld = self.staged[j]
         k = self.slots.buf_slot[ld.buf]
-        u = [f"(long long){c} * (long long){self.var[r]}"
+        u = [f"(long long){c} * (long long){self.var[r]}[0]"
              for r, c in ld.uniform]
         if ld.block:
             u.append(f"(long long){ld.block} * b")
@@ -313,12 +340,12 @@ class _SegmentEmitter:
         u.append(f"({ld.const}ll)")
         lo, hi = ld.offsets(1)
         self.out("__syncthreads();")
-        self.out(f"if (t == 0) het_stage_window({' + '.join(u)}, {lo}ll, "
+        self.out(f"if (tid == 0) het_stage_window({' + '.join(u)}, {lo}ll, "
                  f"{hi}ll, {ld.lane}ll, T, son{j}, stw + {2 * j});")
         self.out("__syncthreads();")
         self.out(f"sw{j} = stw[{2 * j}]; sl{j} = stw[{2 * j + 1}];")
         self.out(f"het_stage_copy<{ld.row()}>(st{j}, sw{j}, sl{j}, g{k}, "
-                 f"n{k}, t, T);")
+                 f"n{k}, tid, NT);")
 
     # -- statements ----------------------------------------------------------
     def stmts(self, body: Sequence[ir.Stmt], m: Optional[str]) -> None:
@@ -328,11 +355,16 @@ class _SegmentEmitter:
             elif isinstance(s, ir.Pred):
                 self.n_masks += 1
                 inner = f"m{self.n_masks}"
-                cond = f"het_truth({self.var[s.cond.name]})"
+                cond = f"het_truth({self.reg(s.cond.name)})"
+                cond = cond if m is None else f"{m} && {cond}"
                 self.out("{")
                 self.depth += 1
-                self.out(f"const bool {inner} = "
-                         f"{cond if m is None else f'{m} && {cond}'};")
+                if self.mode == "s":
+                    self.out(f"bool {inner}[HL];")
+                    self.lane(f"{inner}[l_] = {cond};")
+                    inner += "[l_]"
+                else:
+                    self.out(f"const bool {inner} = {cond};")
                 self.stmts(s.body, inner)
                 self.depth -= 1
                 self.out("}")
@@ -444,23 +476,22 @@ class _SegmentEmitter:
     # -- memory ----------------------------------------------------------------
     def store(self, ptr: str, n: str, idx_arg, value: str, dt: str,
               m: Optional[str]) -> None:
+        line = f"het_st({ptr}, {n}, {self.idx(idx_arg)}, {value});"
         if self.mode == "b":
-            line = f"het_st({ptr}, {n}, {self.idx(idx_arg)}, {value});"
-            self.out(line if m is None else f"if ({m}) {line}")
+            self.lane(line if m is None else f"if ({m}) {line}")
             return
         self.sync()
         if self.lane_unique(idx_arg):
-            line = f"het_st({ptr}, {n}, {self.idx(idx_arg)}, {value});"
-            self.out(line if m is None else f"if ({m}) {line}")
+            self.lane(line if m is None else f"if ({m}) {line}")
         else:
-            # lanes may collide: lane 0 applies the stores in lane order,
+            # lanes may collide: thread 0 applies the stores in lane order,
             # so the highest active lane wins
             self.need_scalar("serialized store")
-            self.out(f"scr_a[t] = {self.active(m)}; "
-                     f"scr_i[t] = {self.idx(idx_arg)}; "
-                     f"scr_v[t] = het_bits({value});")
+            self.lane(f"scr_a[t] = {self.active(m)}; "
+                      f"scr_i[t] = {self.idx(idx_arg)}; "
+                      f"scr_v[t] = het_bits({value});")
             self.sync()
-            self.out("if (t == 0) for (int l = 0; l < T; ++l) if (scr_a[l]) "
+            self.out("if (tid == 0) for (int l = 0; l < T; ++l) if (scr_a[l]) "
                      f"het_st({ptr}, {n}, scr_i[l], het_{_SFX[dt]}(scr_v[l]));")
         self.sync()
 
@@ -471,12 +502,12 @@ class _SegmentEmitter:
         bdt = self.prog.param(name).dtype
         add = _binop(ir.ADD, "o_", f"het_{_SFX[bdt]}(scr_v[l])", bdt)
         self.sync()
-        self.out(f"scr_a[t] = {self.active(m)}; "
-                 f"scr_i[t] = {self.idx(op.args[1])}; "
-                 f"scr_v[t] = het_bits({self.val(op.args[2], bdt)});")
+        self.lane(f"scr_a[t] = {self.active(m)}; "
+                  f"scr_i[t] = {self.idx(op.args[1])}; "
+                  f"scr_v[t] = het_bits({self.val(op.args[2], bdt)});")
         self.sync()
         # lane order within the block, block order from the serial walk
-        self.out("if (t == 0) for (int l = 0; l < T; ++l) if (scr_a[l]) {")
+        self.out("if (tid == 0) for (int l = 0; l < T; ++l) if (scr_a[l]) {")
         self.out(f"  long long i_ = scr_i[l]; if (i_ < 0) i_ += n{k};")
         self.out(f"  {_CT[bdt]} o_ = {_const(0, bdt)};")
         self.out(f"  if (i_ >= 0 && i_ < n{k}) {{ o_ = g{k}[i_]; "
@@ -496,34 +527,43 @@ class _SegmentEmitter:
             if self.mode != "s":
                 raise AssertionError(f"{oc} in a block-lowered segment")
             a = op.args[0]
-            p = f"het_truth({self.var[a.name]})" if isinstance(a, ir.Reg) \
+            p = f"het_truth({self.reg(a.name)})" if isinstance(a, ir.Reg) \
                 else ("true" if bool(a) else "false")
             self.n_masks += 1
             v = f"v{self.n_masks}"
+            # a thread combines its lanes' votes, then the block the threads'
             if oc == ir.VOTE_ANY:
-                self.out(f"const bool {v} = __syncthreads_or({act} && {p});")
+                self.out(f"bool {v} = false;")
+                self.lane(f"{v} = {v} || ({act} && {p});")
+                self.out(f"{v} = __syncthreads_or({v});")
                 self.write(d, v, ir.BOOL, m)
             elif oc == ir.VOTE_ALL:
-                self.out(f"const bool {v} = __syncthreads_and(!({act}) || {p});")
+                self.out(f"bool {v} = true;")
+                self.lane(f"{v} = {v} && (!({act}) || {p});")
+                self.out(f"{v} = __syncthreads_and({v});")
                 self.write(d, v, ir.BOOL, m)
             else:
-                self.out(f"const int {v} = __syncthreads_count({act} && {p});")
+                # the count of voting lanes: one barrier per lane slot
+                self.out(f"bool {v}p[HL] = {{}};")
+                self.lane(f"{v}p[l_] = {act} && {p};")
+                self.out(f"int {v} = 0;")
+                self.out(f"for (int l_ = 0; l_ < HL; ++l_) "
+                         f"{v} += __syncthreads_count({v}p[l_]);")
                 self.write(d, v, ir.I32, m)
             return
         self.need_scalar(oc)
         if oc == ir.SHUFFLE:
             src = op.args[0]
             self.sync()
-            self.out(f"scr_v[t] = het_bits({self.var[src.name]});")
+            self.lane(f"scr_v[t] = het_bits({self.reg(src.name)});")
             self.sync()
             self.n_masks += 1
             s = f"s{self.n_masks}"
-            self.out(f"{{ long long {s} = {self.idx(op.args[1])}; "
-                     f"{s} = {s} < 0 ? 0 : ({s} > T - 1 ? T - 1 : {s});")
-            self.depth += 1
-            self.write(d, f"het_{_SFX[src.dtype]}(scr_v[{s}])", src.dtype, m)
-            self.depth -= 1
-            self.out("}")
+            get = self.assign(d, f"het_{_SFX[src.dtype]}(scr_v[{s}])",
+                              src.dtype, m)
+            self.lane(f"{{ long long {s} = {self.idx(op.args[1])}; "
+                      f"{s} = {s} < 0 ? 0 : ({s} > T - 1 ? T - 1 : {s}); "
+                      f"{get} }}")
             self.sync()
             return
         dt = d.dtype if oc == ir.REDUCE_ADD else operand_dtype(op)
@@ -532,19 +572,22 @@ class _SegmentEmitter:
         ct, sfx = _CT[dt], _SFX[dt]
         val = self.val(op.args[0], dt)
         self.sync()
+        # the thread's lanes' flags and values (lanes past T stay inactive)
+        self.n_masks += 1
+        x = f"x{self.n_masks}"
+        self.out(f"bool {x}a[HL] = {{}}; {ct} {x}v[HL] = {{}};")
+        self.lane(f"{x}a[l_] = {act}; {x}v[l_] = {val};")
         if oc == ir.REDUCE_MAX:
             # a shuffle tree whose ties resolve as the lane-order fold's
-            self.n_masks += 1
-            x = f"x{self.n_masks}"
-            self.out(f"const {ct} {x} = het_block_max<{ct}>({act}, {val}, t, "
-                     "T, scr_a, scr_v, scr_r);")
+            self.out(f"const {ct} {x} = het_block_max<{ct}>({x}a, {x}v, tid, "
+                     "NT, T, scr_a, scr_v, scr_r);")
             self.tree_folds += 1
             self.write(d, x, dt, m)
         elif oc in (ir.REDUCE_ADD, ir.SCAN_ADD):
             # from the zero of the destination dtype, in lane order
             scan = "true" if oc == ir.SCAN_ADD else "false"
-            self.out(f"het_block_add<{ct}, {scan}>({act}, {val}, t, T, scr_a, "
-                     "scr_v, scr_o, scr_r);")
+            self.out(f"het_block_add<{ct}, {scan}>({x}a, {x}v, tid, NT, T, "
+                     "scr_a, scr_v, scr_o, scr_r);")
             res = "scr_o[t]" if oc == ir.SCAN_ADD else "scr_r[0]"
             self.write(d, f"het_{sfx}({res})", dt, m)
         else:  # pragma: no cover
@@ -584,8 +627,12 @@ class _SegmentEmitter:
                 f"{name}(const HetArgs a) {{"]
         self.out("const int T = a.block_size;")
         if self.mode == "s":
+            # the thread runs hetIR lanes tid + l_ * NT, l_ < HL, of each
+            # block it walks (HET_LANES)
+            self.out(f"constexpr int HL = {self.lanes};")
             self.out("extern __shared__ unsigned int het_smem[];")
-            self.out("const int t = threadIdx.x;")
+            self.out("const int tid = threadIdx.x, NT = "
+                     f"{'blockDim.x' if self.lanes > 1 else 'T'};")
             if sl.shared:
                 sct = _CT[prog.shared_dtype]
                 self.out(f"{sct}* sh = reinterpret_cast<{sct}*>(het_smem);")
@@ -617,7 +664,10 @@ class _SegmentEmitter:
         if self.mode == "s":
             self.out("for (int b = blockIdx.x; b < a.num_blocks; "
                      "b += gridDim.x) {")
-            self.out("  const long long lane = (long long)b * T + t;")
+            if self.lanes == 1:
+                self.out("  constexpr int l_ = 0;")
+                self.out("  const int t = tid;")
+                self.out("  const long long lane = (long long)b * T + t;")
         else:
             # LANES_PER_THREAD lanes a thread, blockDim.x apart (coalesced),
             # so that each thread keeps several lanes' loads in flight
@@ -645,25 +695,31 @@ class _SegmentEmitter:
             zero = _const(0, dt)
             init = zero if n not in sl.in_slot else \
                 f"i{sl.in_slot[n]} ? i{sl.in_slot[n]}[lane] : {zero}"
-            self.out(f"{_CT[dt]} {self.var[n]} = {init};  // %{n}")
+            if self.mode == "s":
+                self.out(f"{_CT[dt]} {self.var[n]}[HL];  // %{n}")
+                self.lane(f"{self.reg(n)} = {init};")
+            else:
+                self.out(f"{_CT[dt]} {self.var[n]} = {init};  // %{n}")
         for j in range(len(self.staged)):
             self.out(f"long long sw{j} = 0, sl{j} = 0;  // staged window {j}")
         if self.mode == "s" and sl.shared:
-            self.out(f"for (int i = t; i < {prog.shared_size}; i += T) "
+            self.out(f"for (int i = tid; i < {prog.shared_size}; i += NT) "
                      f"sh[i] = shg[(long long)b * {prog.shared_size} + i];")
             self.out("__syncthreads();")
-        tail = []
+        decls = self.lines
+        self.lines = []
         if self.mode == "s" and sl.shared:
-            tail.append("__syncthreads();")
-            tail.append(f"for (int i = t; i < {prog.shared_size}; i += T) "
-                        f"shg[(long long)b * {prog.shared_size} + i] = sh[i];")
+            self.out("__syncthreads();")
+            self.out(f"for (int i = tid; i < {prog.shared_size}; i += NT) "
+                     f"shg[(long long)b * {prog.shared_size} + i] = sh[i];")
         for n in sl.outputs:
-            tail.append(f"o{sl.out_slot[n]}[lane] = {self.var[n]};")
+            self.lane(f"o{sl.out_slot[n]}[lane] = {self.reg(n)};")
         if self.mode == "s":
-            tail.append("__syncthreads();")
-        head.extend(self.lines)
+            self.out("__syncthreads();")
+        tail = self.lines
+        head.extend(decls)
         head.extend(body)
-        head.extend("    " + line for line in tail)
+        head.extend(tail)
         head.append("  }")
         head.append("}")
         return "\n".join(head)
@@ -707,6 +763,13 @@ class SegmentKernels:
         self.serial = serial
 
 
+def lanes_per_thread(T: int) -> int:
+    """hetIR lanes a thread of the scalar kernel runs for blocks of ``T``
+    lanes: 1 up to :data:`MAX_BLOCK`, then ``⌈T / MAX_BLOCK⌉`` (the
+    kernel's ``HL``, a compile-time constant: one library per value)."""
+    return max(1, -(-T // MAX_BLOCK))
+
+
 def _launcher(kname: str) -> str:
     return "\n".join([
         f'extern "C" int launch_{kname}(const HetArgs* a, int grid, '
@@ -731,11 +794,15 @@ def _block_capable(seg: SegNode) -> bool:
     return True
 
 
-def emit_module(prog: ir.Program) -> Tuple[str, Dict[int, SegmentKernels]]:
+def emit_module(prog: ir.Program, lanes: int = 1
+                ) -> Tuple[str, Dict[int, SegmentKernels]]:
     """CUDA source of every segment kernel of an optimized program, with
-    the per-segment launch metadata.  Deterministic in the program."""
+    the per-segment launch metadata; the scalar kernels run ``lanes`` hetIR
+    lanes a thread (:func:`lanes_per_thread`).  Deterministic in the
+    program and ``lanes``."""
     parts = ["// hetIR -> CUDA C++ segment kernels (repro_torch translator)",
-             f"// program {prog.name} {ir.program_fingerprint(prog)}",
+             f"// program {prog.name} {ir.program_fingerprint(prog)}, "
+             f"{lanes} lane(s) a thread",
              f"#define HET_MAX_PTRS {MAX_PTRS}",
              f"#define HET_MAX_BUFS {MAX_BUFS}",
              f"#define HET_MAX_SCALARS {MAX_SCALARS}",
@@ -747,7 +814,7 @@ def emit_module(prog: ir.Program) -> Tuple[str, Dict[int, SegmentKernels]]:
         if not isinstance(seg, SegNode):
             continue
         slots = SegmentSlots(seg, prog, live_out(prog, seg))
-        em = _SegmentEmitter(seg, prog, slots, "s")
+        em = _SegmentEmitter(seg, prog, slots, "s", lanes)
         parts.append(f"// segment {seg.index} ({seg.label}): scalar")
         parts.append(em.kernel(f"het_seg{seg.index}_s"))
         parts.append(_launcher(f"het_seg{seg.index}_s"))
@@ -817,27 +884,29 @@ class CudaBackend(Backend):
         self._modules: Dict[str, _Module] = {}
 
     # -- translation -----------------------------------------------------------
-    def prebuild(self, programs: Sequence[ir.Program]) -> Dict[str, object]:
+    def prebuild(self, programs: Sequence[ir.Program],
+                 lanes: int = 1) -> Dict[str, object]:
         """Translate and build the segment kernels of several optimized
         programs at once (one ``nvcc`` process per program, run
-        concurrently) and load them."""
+        concurrently), their scalar kernels at ``lanes`` hetIR lanes a
+        thread, and load them."""
         todo = []
         for prog in programs:
-            fp = ir.program_fingerprint(prog)
-            if fp not in self._modules and fp not in {f for f, _, _ in todo}:
-                src, kernels = emit_module(prog)
-                todo.append((fp, src, kernels))
+            key = (ir.program_fingerprint(prog), lanes)
+            if key not in self._modules and key not in {k for k, _, _ in todo}:
+                src, kernels = emit_module(prog, lanes)
+                todo.append((key, src, kernels))
         res = nvcc_build.build([nvcc_build.segment_job(src)
                                  for _, src, _ in todo])
-        for (fp, _, kernels), path in zip(todo, res["paths"]):
-            self._modules[fp] = _Module(path, kernels)
+        for (key, _, kernels), path in zip(todo, res["paths"]):
+            self._modules[key] = _Module(path, kernels)
         return res
 
-    def _module(self, prog: ir.Program) -> _Module:
-        fp = ir.program_fingerprint(prog)
-        if fp not in self._modules:
-            self.prebuild([prog])
-        return self._modules[fp]
+    def _module(self, prog: ir.Program, lanes: int = 1) -> _Module:
+        key = (ir.program_fingerprint(prog), lanes)
+        if key not in self._modules:
+            self.prebuild([prog], lanes)
+        return self._modules[key]
 
     def _verdict(self, seg: SegNode, launch: Launch,
                  glb_lens: Tuple) -> Tuple[Optional[int], Optional[str]]:
@@ -891,7 +960,8 @@ class CudaBackend(Backend):
                 block: Optional[int]) -> None:
         prog = launch.program
         B, T = launch.num_blocks, launch.block_size
-        mod = self._module(prog)
+        lanes = 1 if block is not None else lanes_per_thread(T)
+        mod = self._module(prog, lanes)
         k = mod.kernels[seg.index]
         sl = k.slots
         dev = next(iter(state.globals_.values())).device if state.globals_ \
@@ -936,11 +1006,7 @@ class CudaBackend(Backend):
             mode, threads, smem = "b", block, 0
             grid = -(-B * T // (block * LANES_PER_THREAD))
         else:
-            if T > MAX_BLOCK:
-                raise ValueError(
-                    f"block size {T} > {MAX_BLOCK}: the scalar CUDA kernel "
-                    "runs one thread per hetIR lane (see ROADMAP.md)")
-            mode, threads = "s", T
+            mode, threads = "s", -(-T // lanes)
             grid = 1 if k.serial else B
             smem = smem_bytes(prog, sl, k.scratch, T, k.staged)
         err = mod.fns[(seg.index, mode)](ctypes.byref(args), grid, threads,

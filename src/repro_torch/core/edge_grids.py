@@ -6,9 +6,12 @@ zero divisor and ``INT_MIN / -1``, shifts by 32 or more, NumPy's x86
 float -> integer casts of NaN and out-of-range values, NaN-propagating
 MIN/MAX on ``(±0, ±0)``, a float fold of all ``-0.0`` (``+0.0``), folds
 and votes under divergence, ``REDUCE_MAX`` ties of ``±0`` and NaN, the
-block-then-lane order of atomics and colliding stores, and a loop whose
-loads the CUDA kernel stages in shared memory reading indices below 0 and
-past the end.
+block-then-lane order of atomics and colliding stores, ``SHUFFLE`` from
+lanes out of range, and a loop whose loads the CUDA kernel stages in
+shared memory reading indices below 0 and past the end.  The programs
+with cross-lane ops also come in blocks wider than 1024 lanes
+(:func:`wide_cases`), where a thread of the CUDA kernel runs several
+lanes.
 
 Every builder takes the hetIR module to build with (``ir``, default this
 package's), so the same programs can be built by the JAX package and held
@@ -17,6 +20,7 @@ outputs)``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterator, Tuple
 
 import numpy as np
@@ -90,22 +94,24 @@ def unary_case(op: str, ir=_ir):
     return _unary(op, ir.F32, ir.F32, np.resize(F32_EDGES, 32), ir)
 
 
-def neg_zero_fold_case(ir=_ir):
+def neg_zero_fold_case(ir=_ir, block: int = 4):
     """REDUCE_ADD and SCAN_ADD of all ``-0.0``: the fold starts from
-    ``+0.0``, so both give ``+0.0``."""
+    ``+0.0``, so both give ``+0.0``.  Two blocks of ``block`` lanes."""
     b = ir.Builder("neg_zero_fold", [ir.Ptr("A"), ir.Ptr("S"), ir.Ptr("C")])
     i = b.global_id(0)
     x = b.load("A", i)
     b.store("S", i, b.reduce_add(x))
     b.store("C", i, b.scan_add(x))
-    return (b.done(), 2, 4, {"A": np.full(8, -0.0, np.float32),
-                             "S": np.ones(8, np.float32),
-                             "C": np.ones(8, np.float32)}, ("S", "C"))
+    n = 2 * block
+    return (b.done(), 2, block, {"A": np.full(n, -0.0, np.float32),
+                                 "S": np.ones(n, np.float32),
+                                 "C": np.ones(n, np.float32)}, ("S", "C"))
 
 
-def divergent_folds_case(ir=_ir):
+def divergent_folds_case(ir=_ir, block: int = 32):
     """Folds, a scan and a vote under a predicate, over values of mixed
-    magnitude with a NaN: lane order decides every rounding."""
+    magnitude with a NaN: lane order decides every rounding.  Two blocks
+    of ``block`` lanes."""
     b = ir.Builder("folds", [ir.Ptr("A"), ir.Ptr("R"), ir.Ptr("M"),
                              ir.Ptr("P"), ir.Ptr("V", ir.I32)])
     i = b.global_id(0)
@@ -117,21 +123,25 @@ def divergent_folds_case(ir=_ir):
         b.store("P", i, b.scan_add(x))
         b.store("V", i, b.ballot(x > b.const(0.0, ir.F32)))
     rng = np.random.default_rng(3)
-    a = (rng.standard_normal(64) * 10.0 ** rng.integers(-3, 8, 64)) \
+    n = 2 * block
+    a = (rng.standard_normal(n) * 10.0 ** rng.integers(-3, 8, n)) \
         .astype(np.float32)
     a[5] = np.nan
-    return (b.done(), 2, 32, {"A": a, "R": np.zeros(64, np.float32),
-                              "M": np.zeros(64, np.float32),
-                              "P": np.zeros(64, np.float32),
-                              "V": np.zeros(64, np.int32)},
+    return (b.done(), 2, block, {"A": a, "R": np.zeros(n, np.float32),
+                                 "M": np.zeros(n, np.float32),
+                                 "P": np.zeros(n, np.float32),
+                                 "V": np.zeros(n, np.int32)},
             ("R", "M", "P", "V"))
 
 
-def reduce_max_ties_case(ir=_ir):
+def reduce_max_ties_case(ir=_ir, block: int = 48):
     """REDUCE_MAX where the maximum is shared: ``+0`` and ``-0`` compare
     equal and the fold keeps the later lane's, a NaN wins over everything
     (the first NaN); over every lane and under a predicate, in blocks of
-    48 lanes (one whole warp and a partial one)."""
+    48 lanes (one whole warp and a partial one) or of ``block``.  The last
+    block's maximum sits in three lanes whose middle one is off under the
+    predicate; in wider blocks the ties also straddle the middle lane,
+    where the CUDA kernel's threads move to their second lane."""
     b = ir.Builder("reduce_max_ties", [ir.Ptr("A"), ir.Ptr("M"),
                                        ir.Ptr("P")])
     i = b.global_id(0)
@@ -141,14 +151,19 @@ def reduce_max_ties_case(ir=_ir):
     with b.when((t % b.const(5)).ne(b.const(3))):
         b.store("P", i, b.reduce_max(x))
     rng = np.random.default_rng(11)
-    T = 48
+    T = block
     zeros = np.where(rng.random(T) < 0.5, -0.0, 0.0).astype(np.float32)
     neg = zeros.copy()
     neg[rng.random(T) < 0.5] = -3.0
     nan = zeros.copy()
     nan[[7, 30]] = np.nan
     late = np.full(T, -np.inf, np.float32)
-    late[[41, 42, 43]] = (0.0, -0.0, 0.0)   # lane 43 is off under the mask
+    # lane T - 5 is off under the mask; in wide blocks more ties straddle
+    # the middle lane (T // 2) and T - 1
+    off = T - 5 - (T - 5) % 5 + 3
+    late[[off - 2, off - 1, off]] = (0.0, -0.0, 0.0)
+    if T > 64:
+        late[[T // 2 - 1, T // 2, T - 1]] = (-0.0, 0.0, -0.0)
     a = np.concatenate([zeros, neg, nan, late]).astype(np.float32)
     return (b.done(), 4, T, {"A": a, "M": np.ones(a.size, np.float32),
                              "P": np.ones(a.size, np.float32)}, ("M", "P"))
@@ -184,11 +199,11 @@ def staged_window_case(ir=_ir):
                               "base": -603}, ("Out", "Sum"))
 
 
-def atomic_order_case(ir=_ir):
+def atomic_order_case(ir=_ir, block: int = 32):
     """Float atomics on one address apply block by block, lane by lane
     (the rounding of every add, and the old value each lane sees, depend
     on it); several lanes storing to one address leave the highest lane's
-    value."""
+    value.  Three blocks of ``block`` lanes."""
     b = ir.Builder("atomics", [ir.Ptr("A"), ir.Ptr("Acc"), ir.Ptr("Old"),
                                ir.Ptr("Last")])
     i = b.global_id(0)
@@ -198,12 +213,37 @@ def atomic_order_case(ir=_ir):
     b.store("Old", i, old)
     b.store("Last", t % b.const(4), x)
     rng = np.random.default_rng(5)
-    a = (rng.standard_normal(96) * 10.0 ** rng.integers(-4, 9, 96)) \
+    n = 3 * block
+    a = (rng.standard_normal(n) * 10.0 ** rng.integers(-4, 9, n)) \
         .astype(np.float32)
-    return (b.done(), 3, 32, {"A": a, "Acc": np.zeros(2, np.float32),
-                              "Old": np.zeros(96, np.float32),
-                              "Last": np.zeros(4, np.float32)},
+    return (b.done(), 3, block, {"A": a, "Acc": np.zeros(2, np.float32),
+                                 "Old": np.zeros(n, np.float32),
+                                 "Last": np.zeros(4, np.float32)},
             ("Acc", "Old", "Last"))
+
+
+def shuffle_case(ir=_ir, block: int = 32):
+    """SHUFFLE from a lane each lane computes: below 0 and past the block
+    (clamped to lanes 0 and T - 1), from lanes that are off under a
+    predicate (a shuffle reads its source whatever the source's mask), and
+    under a predicate itself.  Two blocks of ``block`` lanes."""
+    b = ir.Builder("shuffle", [ir.Ptr("A"), ir.Ptr("X"), ir.Ptr("Y")])
+    i = b.global_id(0)
+    t = b.thread_id()
+    dim = b.block_dim()
+    x = b.var(b.const(-1.0, ir.F32), hint="x")
+    with b.when((t % b.const(4)).ne(b.const(2))):
+        b.assign(x, b.load("A", i))
+    src = (t * b.const(37)) % (dim + b.const(9)) - b.const(4)
+    b.store("X", i, b.shuffle(x, src))
+    with b.when((t % b.const(3)).eq(b.const(0))):
+        b.store("Y", i, b.shuffle(x, dim - t - b.const(1)))
+    rng = np.random.default_rng(17)
+    n = 2 * block
+    return (b.done(), 2, block,
+            {"A": rng.standard_normal(n).astype(np.float32),
+             "X": np.zeros(n, np.float32), "Y": np.zeros(n, np.float32)},
+            ("X", "Y"))
 
 
 def all_cases(ir=_ir) -> Iterator[Tuple[str, tuple]]:
@@ -219,3 +259,48 @@ def all_cases(ir=_ir) -> Iterator[Tuple[str, tuple]]:
     yield "reduce_max_ties", reduce_max_ties_case(ir)
     yield "atomic_order", atomic_order_case(ir)
     yield "staged_window", staged_window_case(ir)
+    yield "shuffle", shuffle_case(ir)
+
+
+def wide_cases(block: int, ir=_ir) -> Iterator[Tuple[str, tuple]]:
+    """(label, case) for the programs with cross-lane ops — folds, scans,
+    votes, ``REDUCE_MAX`` ties, atomics and colliding stores, ``SHUFFLE`` —
+    in blocks of ``block`` lanes (wider than 1024: several lanes to a
+    thread of the CUDA kernel)."""
+    yield "neg_zero_fold", neg_zero_fold_case(ir, block)
+    yield "divergent_folds", divergent_folds_case(ir, block)
+    yield "reduce_max_ties", reduce_max_ties_case(ir, block)
+    yield "atomic_order", atomic_order_case(ir, block)
+    yield "shuffle", shuffle_case(ir, block)
+
+
+#: suite programs with cross-lane ops that :func:`wide_suite_case` runs
+WIDE_SUITE = ("reduction", "inclusive_scan", "bitcount_vote", "dot_product")
+
+
+def wide_suite_case(name: str, block: int, rng=None):
+    """Suite program ``name`` (one of :data:`WIDE_SUITE`, from this
+    package's ``kernels_suite``) at two blocks of ``block`` lanes, with
+    inputs from ``rng`` and tails in ``n``: (program, grid, block, args,
+    outputs).  The reduction's shared row (1024 elements) grows to the
+    block."""
+    from . import kernels_suite
+    rng = np.random.default_rng(14) if rng is None else rng
+    prog, _ = kernels_suite.SUITE[name]()
+    if prog.shared_size:
+        prog = dataclasses.replace(prog, shared_size=block)
+    n = 2 * block
+    a = rng.normal(size=n).astype(np.float32)
+    args = {"reduction": {"A": a, "Out": np.zeros(1, np.float32),
+                          "n": n - 7, "log2t": int(block).bit_length()},
+            "inclusive_scan": {"A": a, "Out": np.zeros(n, np.float32),
+                               "BlockSums": np.zeros(2, np.float32),
+                               "n": n - 5},
+            "bitcount_vote": {"A": a, "Out": np.zeros(2, np.float32),
+                              "n": n - 3, "thresh": 0.25},
+            "dot_product": {"A": a, "B": rng.normal(size=n)
+                            .astype(np.float32),
+                            "Out": np.zeros(1, np.float32), "n": n - 1}}
+    outs = {"reduction": ("Out",), "inclusive_scan": ("Out", "BlockSums"),
+            "bitcount_vote": ("Out",), "dot_product": ("Out",)}
+    return prog, 2, block, args[name], outs[name]

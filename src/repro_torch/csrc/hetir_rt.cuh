@@ -180,6 +180,21 @@ __device__ __forceinline__ void het_st(T* p, long long n, long long i, T v) {
 
 __device__ __forceinline__ int het_even(int n) { return (n + 1) & ~1; }
 
+// ---- lanes of a thread ------------------------------------------------------
+// A thread of a scalar kernel runs HL hetIR lanes of its block: lane
+// t = tid + l_ * NT for l_ < HL (NT threads; lanes at or past the block's T
+// do not exist).  HET_LANES(stmt) runs stmt for each of them, with the
+// lane's t and global lane index `lane` in scope; the kernel defines HL,
+// tid, NT, T and b.  (A kernel of one lane a thread writes its statements
+// plainly, with l_ = 0 and t = tid.)
+#define HET_LANES(...)                                      \
+  _Pragma("unroll") for (int l_ = 0; l_ < HL; ++l_) {       \
+    const int t = tid + l_ * NT;                            \
+    const long long lane = (long long)b * T + t;            \
+    (void)lane;                                             \
+    if (HL == 1 || t < T) { __VA_ARGS__ }                   \
+  }
+
 // ---- read-only loads --------------------------------------------------------
 // a buffer the segment never writes is read through the read-only path
 __device__ __forceinline__ bool het_ldg_raw(const bool* p) { return *p; }
@@ -279,68 +294,83 @@ __device__ __forceinline__ unsigned het_warp_mask(int t, int T) {
 // REDUCE_MAX over the active lanes: what the fold in lane order gives.
 // het_maxv(a, b) keeps the later operand on a tie (so of +0 and -0 the
 // later lane's) and the earlier NaN; it is associative, so a tree that
-// always puts the lower lanes on the left gives the fold's bits: each warp
-// combines neighbouring ranges [i, i + off) by shuffles down with offsets
-// 1, 2, 4, 8, 16, then thread 0 combines the warps in order.  With no
-// active lane the result is 0, as the fold's.  scr_a/scr_v hold a flag and
-// a value per warp, scr_r the result.
-template <typename T>
-__device__ __forceinline__ T het_block_max(bool act, T v, int t, int nt,
-                                           int* scr_a, unsigned* scr_v,
+// always puts the lower lanes on the left gives the fold's bits.  Lane
+// slot l of the NT threads holds the contiguous lanes l * NT .. l * NT +
+// NT - 1: for each slot every warp combines neighbouring ranges [i, i +
+// off) by shuffles down with offsets 1, 2, 4, 8, 16, then thread 0
+// combines the (slot, warp) partials in that order — lane order.  With no
+// active lane the result is 0, as the fold's.  act/v hold the thread's
+// lanes (act false for lanes past T); scr_a/scr_v a flag and a value per
+// slot and warp (HL * warps <= T entries), scr_r the result.
+template <typename V, int HL>
+__device__ __forceinline__ V het_block_max(const bool (&act)[HL],
+                                           const V (&v)[HL], int tid, int NT,
+                                           int T, int* scr_a, unsigned* scr_v,
                                            unsigned* scr_r) {
-  const unsigned mask = het_warp_mask(t, nt);
-  const int lane = t & 31;
-  int h = act ? 1 : 0;
-  T x = v;
+  const unsigned mask = het_warp_mask(tid, NT);
+  const int lane = tid & 31, nw = (NT + 31) / 32;
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const T y = __shfl_down_sync(mask, x, off);
-    const int hy = __shfl_down_sync(mask, h, off);
-    if (lane + off < 32 && t + off < nt && hy) {
-      x = h ? het_maxv(x, y) : y;
-      h = 1;
+  for (int l = 0; l < HL; ++l) {
+    int h = act[l] && (HL == 1 || tid + l * NT < T) ? 1 : 0;
+    V x = v[l];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const V y = __shfl_down_sync(mask, x, off);
+      const int hy = __shfl_down_sync(mask, h, off);
+      if (lane + off < 32 && tid + off < NT && hy) {
+        x = h ? het_maxv(x, y) : y;
+        h = 1;
+      }
+    }
+    if (lane == 0) {
+      scr_a[l * nw + (tid >> 5)] = h;
+      scr_v[l * nw + (tid >> 5)] = het_bits(x);
     }
   }
-  if (lane == 0) {
-    scr_a[t >> 5] = h;
-    scr_v[t >> 5] = het_bits(x);
-  }
   __syncthreads();
-  if (t == 0) {
-    T acc = T(0);
+  if (tid == 0) {
+    V acc = V(0);
     bool have = false;
-    for (int w = 0; w < (nt + 31) / 32; ++w)
+    for (int w = 0; w < HL * nw; ++w)
       if (scr_a[w]) {
-        const T y = het_from_bits<T>(scr_v[w]);
+        const V y = het_from_bits<V>(scr_v[w]);
         acc = have ? het_maxv(acc, y) : y;
         have = true;
       }
     scr_r[0] = het_bits(acc);
   }
   __syncthreads();
-  return het_from_bits<T>(scr_r[0]);
+  return het_from_bits<V>(scr_r[0]);
 }
 
 // REDUCE_ADD (scan = false) or SCAN_ADD (scan = true) over the active
 // lanes, folded from 0 in lane order by thread 0 — rounding forbids a
 // tree.  (Gathering 32 lanes at a time into warp 0's registers and folding
 // by shuffles was slower on the H100: the shuffles sit in the add chain.)
-// The sum goes to scr_r[0]; a scan leaves each active lane's running sum
-// in scr_o.
-template <typename T, bool scan>
-__device__ __forceinline__ void het_block_add(bool act, T v, int t, int nt,
-                                              int* scr_a, unsigned* scr_v,
+// act/v hold the thread's lanes, as for het_block_max.  The sum goes to
+// scr_r[0]; a scan leaves each active lane's running sum in scr_o.
+template <typename V, bool scan, int HL>
+__device__ __forceinline__ void het_block_add(const bool (&act)[HL],
+                                              const V (&v)[HL], int tid,
+                                              int NT, int T, int* scr_a,
+                                              unsigned* scr_v,
                                               unsigned* scr_o,
                                               unsigned* scr_r) {
-  scr_a[t] = act ? 1 : 0;
-  scr_v[t] = het_bits(v);
+#pragma unroll
+  for (int l = 0; l < HL; ++l) {
+    const int t = tid + l * NT;
+    if (HL == 1 || t < T) {
+      scr_a[t] = act[l] ? 1 : 0;
+      scr_v[t] = het_bits(v[l]);
+    }
+  }
   __syncthreads();
-  if (t == 0) {
-    T acc = T(0);
+  if (tid == 0) {
+    V acc = V(0);
 #pragma unroll 8
-    for (int l = 0; l < nt; ++l)
+    for (int l = 0; l < T; ++l)
       if (scr_a[l]) {
-        acc = het_addv(acc, het_from_bits<T>(scr_v[l]));
+        acc = het_addv(acc, het_from_bits<V>(scr_v[l]));
         if (scan) scr_o[l] = het_bits(acc);
       }
     scr_r[0] = het_bits(acc);

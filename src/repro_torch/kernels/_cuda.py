@@ -8,6 +8,8 @@ library is built by ``nvcc`` for ``sm_90a`` at first use
 ``build/repro_torch/``) and loaded with ``ctypes``.  A wrapper takes the
 route from its tensors' device: CPU tensors go through the plain PyTorch
 version, CUDA tensors launch the kernel or raise — nothing falls back.
+On the card a wrapper first takes its tensors as the kernels take them
+(:func:`prepare`): contiguous, and of one type the kernel computes in.
 """
 from __future__ import annotations
 
@@ -70,10 +72,37 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     return dev.type == "cuda"
 
 
+def prepare(operands: Sequence[torch.Tensor],
+            f32: Sequence[torch.Tensor] = (),
+            i32: Sequence[torch.Tensor] = ()) -> Tuple[list, list, list]:
+    """The tensors of a call as the kernels take them: ``(operands, f32,
+    i32)``, each tensor contiguous (a non-contiguous one is copied).
+
+    ``operands`` (floating tensors) keep their type when they share one
+    the kernels compute in (:data:`FLOATS`); otherwise — another floating
+    type such as float16, or mixed types — each is taken in float32, as
+    the Pallas bodies take every operand (``.astype(jnp.float32)``), and
+    the wrapper casts its result back to the first operand's type, as they
+    cast on the store (``.astype(o_ref.dtype)``).  ``f32`` tensors (gates,
+    initial states) are taken in float32 and ``i32`` ones (counts) in
+    int32, whatever their type."""
+    for t in operands:
+        if not t.is_floating_point():
+            raise ValueError(f"got a {t.dtype} operand: the kernels take "
+                             "floating-point tensors")
+    types = {t.dtype for t in operands}
+    work = operands[0].dtype if len(types) == 1 and types <= set(FLOATS) \
+        else torch.float32
+    return ([t.to(work).contiguous() for t in operands],
+            [t.float().contiguous() for t in f32],
+            [t.to(torch.int32).contiguous() for t in i32])
+
+
 def require(t: torch.Tensor, what: str, dtypes: Sequence[torch.dtype],
             shape: Tuple[int, ...]) -> None:
     """Refuse a tensor the kernel does not take: wrong type, shape, an
-    empty dimension, or not contiguous."""
+    empty dimension, or not contiguous (after :func:`prepare`, only a
+    wrong shape or an empty dimension)."""
     if t.dtype not in dtypes or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous() or 0 in shape:
         raise ValueError(

@@ -6,28 +6,36 @@ Port of ``src/repro/kernels/flash_attention/kernel.py``
 f32 accumulator, running max and denominator, masked kv tail, cast on the
 final flush.
 
-Two CUDA kernels, by input type, each skipping the kv tiles past the
-diagonal (causal) and left of the band (window), and each taking ``d <=
-256`` in three builds — ``d <= 64``, ``<= 128`` and ``<= 256`` — that pad
-the head with zeros:
+Two CUDA sources, each kernel skipping the kv tiles past the diagonal
+(causal) and left of the band (window), routed before the launch by
+:func:`tma_loadable`:
 
-* bf16: ``csrc/kernels/flash_attention_sm90.cu``, one block per (batch,
-  head, 128-row q tile): a producer warpgroup loads q, K and V tiles by
-  TMA into a two-stage ring, two consumer warpgroups multiply with
-  ``wgmma`` (f32 accumulators; P enters ``P V`` as two bf16 operands,
-  ``hi + lo``).  ``d`` must be a multiple of
-  8 (TMA strides are multiples of 16 bytes).  Launches counted in
-  ``flash_attention_fwd.sm90_launches``.
-* f32: ``csrc/kernels/flash_attention.cu`` on the CUDA cores in IEEE f32
-  (no TF32: f32 results are held to 2e-5), register-tiled over
-  ``csrc/kernels/simt_f32.cuh``: one 256-thread block per (batch, head,
-  q tile) — 128 query rows over 64-key tiles for ``d <= 64`` and ``<=
-  128``, 64 rows over 32-key tiles for ``d <= 256`` — a thread owning 8
-  (or 4) rows' scores and outputs in registers, q, K, V and P read from
-  shared memory as float4, K and V tiles double-buffered by ``cp.async``
-  (one barrier per kv tile), causal q tiles heaviest first.  One block
-  per SM: 131, 227 and 201.5 KB of shared memory by build.  Launches
-  counted in ``flash_attention_fwd.launches``.
+* bf16 whose rows TMA can load (``d <= 256`` a multiple of 8, q, k, v
+  16-byte aligned): ``csrc/kernels/flash_attention_sm90.cu``, one block
+  per (batch, head, 128-row q tile): a producer warpgroup loads q, K and
+  V tiles by TMA into a two-stage ring, two consumer warpgroups multiply
+  with ``wgmma`` (f32 accumulators; P enters ``P V`` as two bf16
+  operands, ``hi + lo``), in three builds (``d <= 64``, ``<= 128``,
+  ``<= 256``).  Launches counted in ``flash_attention_fwd.sm90_launches``.
+* everything else: ``csrc/kernels/flash_attention.cu`` on the CUDA cores
+  in IEEE f32 (no TF32: f32 results are held to 2e-5), register-tiled
+  over ``csrc/kernels/simt_f32.cuh``: one 256-thread block per (batch,
+  head, q tile) — 128 query rows over 64-key tiles for ``d <= 64`` and
+  ``<= 128``, 64 rows over 32-key tiles for ``d <= 256`` — a thread
+  owning 8 (or 4) rows' scores and outputs in registers, q, K, V and P
+  read from shared memory as float4, K and V tiles double-buffered by
+  ``cp.async`` (one barrier per kv tile), causal q tiles heaviest first.
+  f32 launches are counted in ``flash_attention_fwd.launches``; bf16 that
+  TMA cannot load (``d % 8 != 0``, unaligned tensors) runs a build that
+  converts each element to f32 on its way into shared memory, counted in
+  ``flash_attention_fwd.simt_bf16_launches``.  Heads wider than 256 (any
+  type) run the wide build, counted in ``flash_attention_fwd.wide_launches``:
+  a third grid dimension cuts the output's ``d`` into slices of 256, and
+  each block sums ``Q Kᵀ`` over the whole head in 256-wide chunks that it
+  stages one after another.
+
+Any other floating type (float16, or operands of mixed types) computes
+in f32 and returns the type of ``q`` (:func:`~repro_torch.kernels._cuda.prepare`).
 
 ``bq`` and ``bk`` are the Pallas tiles, kept by the plain version; on the
 card they do not change the result (a tile that is skipped or not gives
@@ -42,8 +50,9 @@ import torch
 from .. import _cuda
 
 NEG_INF = -1e30
-#: the largest head width the kernel takes
-MAX_D = 256
+#: the widest head of the kernels' one-chunk builds; wider heads run the
+#: wide build
+WIDE_D = 256
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
@@ -92,44 +101,54 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None,
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
                         bq: int = 128, bk: int = 128):
-    """q,k,v: [B, H, S, d] (kv pre-repeated for GQA), f32 or bf16, one
-    type, ``d <= 256``.  Returns [B,H,S,d] in the input type."""
+    """q,k,v: [B, H, S, d] (kv pre-repeated for GQA), floating point.
+    Returns [B,H,S,d] in the type of ``q``."""
     if not _cuda.on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      bq=bq, bk=bk)
+    out_dtype = q.dtype
+    (q, k, v), _, _ = _cuda.prepare((q, k, v))
     B, H, Sq, d = q.shape
     Sk = k.shape[2]
     _cuda.require(q, "q", _cuda.FLOATS, (B, H, Sq, d))
     _cuda.require(k, "k", (q.dtype,), (B, H, Sk, d))
     _cuda.require(v, "v", (q.dtype,), (B, H, Sk, d))
-    if d > MAX_D:
-        raise ValueError(f"head width d={d}: the flash attention kernel "
-                         f"takes d <= {MAX_D}")
     if window is not None and window < 1:
         raise ValueError(f"window={window}: a window holds at least one key")
-    bf16 = q.dtype == torch.bfloat16
-    if bf16 and d % 8:
-        raise ValueError(f"head width d={d}: the bf16 kernel loads tiles by "
-                         "TMA, whose row strides must be multiples of 16 "
-                         "bytes (d a multiple of 8)")
-    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k, v: the bf16 kernel's TMA loads need "
-                         "16-byte aligned tensors")
     out = torch.empty_like(q)
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
-    _cuda.launch("flash_attention_sm90" if bf16 else "flash_attention",
-                 [P, P, P, P, I, I, I, I, I, I, I, F32],
-                 q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), B, H, Sq, Sk, d, int(causal),
-                 -1 if window is None else window, 1.0 / math.sqrt(d))
-    if bf16:
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            Sq, Sk, d, int(causal), -1 if window is None else window,
+            1.0 / math.sqrt(d))
+    types = [P, P, P, P, I, I, I, I, I, I, I, F32]
+    if tma_loadable(q, k, v):
+        _cuda.launch("flash_attention_sm90", types, q.device, *args)
         flash_attention_fwd.sm90_launches += 1
+        return out.to(out_dtype)
+    _cuda.launch("flash_attention", types + [I], q.device, *args,
+                 _cuda.DTYPE_CODE[q.dtype])
+    if d > WIDE_D:
+        flash_attention_fwd.wide_launches += 1
+    elif q.dtype == torch.bfloat16:
+        flash_attention_fwd.simt_bf16_launches += 1
     else:
         flash_attention_fwd.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
-#: launches of the f32 CUDA-core kernel and of the bf16 wgmma/TMA kernel
-#: (the plain version launches nothing)
+def tma_loadable(q, k, v) -> bool:
+    """Does ``flash_attention_sm90`` take these inputs?  bf16, ``d <=
+    256`` a multiple of 8 (TMA row strides are multiples of 16 bytes) and
+    16-byte aligned tensors."""
+    d = q.shape[-1]
+    return q.dtype == torch.bfloat16 and d <= WIDE_D and d % 8 == 0 \
+        and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+
+
+#: launches of the f32 CUDA-core kernel, the bf16 wgmma/TMA kernel, the
+#: bf16 build of the CUDA-core kernel and its wide build (the plain
+#: version launches nothing)
 flash_attention_fwd.launches = 0
 flash_attention_fwd.sm90_launches = 0
+flash_attention_fwd.simt_bf16_launches = 0
+flash_attention_fwd.wide_launches = 0

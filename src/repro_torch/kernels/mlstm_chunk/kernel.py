@@ -11,12 +11,17 @@ decay-masked attention ``(q k^T ∘ Λ) v`` and the inter-chunk term is
 per-step log-decay ``lf`` and input gate ``gi``.
 
 Port of ``src/repro/kernels/mlstm_chunk/kernel.py`` (``mlstm_chunk_fwd``).
-The state of xlstm-125m (``dk = dv = 384``, 576 KB in f32) does not fit in
-one block's shared memory, so the CUDA kernel (``csrc/kernels/mlstm_chunk.cu``)
-splits ``dv`` across blocks: grid ``(dv / 64, BH)``, each block carrying its
-``C[:, 64-column tile]`` over the chunks and recomputing the chunk's
-``[bt, bt]`` score matrix, with ``q`` and ``k`` streamed in 32-wide ``dk``
-slices.  It honours ``bt`` up to 128 and takes ``dk <= 640``.
+The CUDA source (``csrc/kernels/mlstm_chunk.cu``) splits a call into three
+kernels by what depends on the state: per chunk, all in parallel, the
+decays and the masked scores ``P = (q k^T) o W`` over the causal triangle;
+the state walked chunk by chunk (``C = e^{L_end} C + kw^T v`` from
+register tiles, 256 blocks at xlstm-125m), writing each chunk's incoming
+state; and per chunk, all in parallel again, ``y = e^{L} q C_in + P v``.
+The wrapper allocates their scratch (the chunks' states, ``P`` and the
+decays).  Chunks run at ``min(bt, 128)`` steps: a larger ``bt`` runs as
+chunks of 128, the same function in another rounding order.  Any other
+floating type (float16, or operands of mixed types) computes in f32 and
+returns the type of ``q`` (:func:`~repro_torch.kernels._cuda.prepare`).
 """
 from __future__ import annotations
 
@@ -24,9 +29,9 @@ import torch
 
 from .. import _cuda
 
-#: the longest chunk and the widest key the kernel takes (its shared
-#: memory holds a [dk, 64] f32 state slice beside the chunk's tiles)
-MAX_BT, MAX_DK = 128, 640
+#: the longest chunk the kernels run (their tiles' rows); longer chunks
+#: run as chunks of this many steps
+MAX_CHUNK = 128
 
 
 def mlstm_chunk_plain(q, k, v, lf, gi, *, bt: int = 128):
@@ -58,11 +63,13 @@ def mlstm_chunk_plain(q, k, v, lf, gi, *, bt: int = 128):
 
 
 def mlstm_chunk_fwd(q, k, v, lf, gi, *, bt: int = 128):
-    """q,k: [BH, S, dk]; v: [BH, S, dv] (f32 or bf16, one type); lf, gi:
-    [BH, S, 1] f32.  Returns (y [BH,S,dv] in the input type, C_final
+    """q,k: [BH, S, dk]; v: [BH, S, dv] (floating point); lf, gi:
+    [BH, S, 1].  Returns (y [BH,S,dv] in the type of ``q``, C_final
     [BH,dk,dv] f32)."""
     if not _cuda.on_cuda(q, k, v, lf, gi):
         return mlstm_chunk_plain(q, k, v, lf, gi, bt=bt)
+    out_dtype = q.dtype
+    (q, k, v), (lf, gi), _ = _cuda.prepare((q, k, v), f32=(lf, gi))
     BH, S, dk = q.shape
     dv = v.shape[-1]
     _cuda.require(q, "q", _cuda.FLOATS, (BH, S, dk))
@@ -70,23 +77,45 @@ def mlstm_chunk_fwd(q, k, v, lf, gi, *, bt: int = 128):
     _cuda.require(v, "v", (q.dtype,), (BH, S, dv))
     _cuda.require(lf, "lf", (torch.float32,), (BH, S, 1))
     _cuda.require(gi, "gi", (torch.float32,), (BH, S, 1))
-    bt = min(bt, S)
-    if not 1 <= bt <= MAX_BT:
-        raise ValueError(f"bt={bt}: the mLSTM kernel takes chunks of 1 to "
-                         f"{MAX_BT} steps")
-    if dk > MAX_DK:
-        raise ValueError(f"dk={dk}: the mLSTM kernel takes dk <= {MAX_DK}")
-    y = torch.empty((BH, S, dv), dtype=q.dtype, device=q.device)
-    c_final = torch.empty((BH, dk, dv), dtype=torch.float32,
-                          device=q.device)
+    if bt < 1:
+        raise ValueError(f"bt={bt}: a chunk holds at least one step")
+    L = min(bt, S, MAX_CHUNK)
+    nc = -(-S // L)
+    dev = q.device
+    y = torch.empty((BH, S, dv), dtype=q.dtype, device=dev)
+    c_final = torch.empty((BH, dk, dv), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = (torch.empty((BH, nc, MAX_CHUNK, MAX_CHUNK), **f32),  # P
+               torch.empty((BH, nc, dk, dv), **f32),   # each chunk's C_in
+               torch.empty((BH, nc, MAX_CHUNK), **f32),   # e^{L}
+               torch.empty((BH, nc, MAX_CHUNK), **f32),   # e^{L_end - L} i
+               torch.empty((BH, nc), **f32))              # e^{L_end}
     P, I = _cuda.P, _cuda.I
-    _cuda.launch("mlstm_chunk", [P, P, P, P, P, P, P, I, I, I, I, I, I],
-                 q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 lf.data_ptr(), gi.data_ptr(), y.data_ptr(),
-                 c_final.data_ptr(), BH, S, dk, dv, bt,
+    _cuda.launch("mlstm_chunk", [P] * 12 + [I] * 6, dev,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
+                 gi.data_ptr(), y.data_ptr(), c_final.data_ptr(),
+                 *(t.data_ptr() for t in scratch), BH, S, dk, dv, L,
                  _cuda.DTYPE_CODE[q.dtype])
     mlstm_chunk_fwd.launches += 1
-    return y, c_final
+    return y.to(out_dtype), c_final
+
+
+def executed_ops(BH: int, S: int, dk: int, dv: int, bt: int = 128) -> int:
+    """Floating-point operations (2 a multiply-add) the three CUDA kernels
+    execute, tiles and padding included: per chunk the 10 of 16 32 x 32
+    score blocks on or below the diagonal over dk rounded up to the 32-wide
+    slices; the state update over 384-row and 48-column tiles and 16-step
+    slices; the outputs over 128-column tiles, dk rounded up to the
+    64-wide slices and 3/4 of ``P v``'s 128 x 128 square (the warps whose
+    rows all lie above a 64-step slice skip it)."""
+    L = min(bt, S, MAX_CHUNK)
+    nc = -(-S // L)
+    up = lambda x, m: -(-x // m) * m   # noqa: E731
+    ch = MAX_CHUNK
+    scores = 10 * 32 * 32 * up(dk, 32)
+    state = up(dk, 384) * up(dv, 48) * up(L, 16)
+    out = ch * up(dv, 128) * (up(dk, 64) + ch * 3 // 4)
+    return 2 * BH * nc * (scores + state + out)
 
 
 #: kernel launches (the plain version launches nothing)

@@ -24,6 +24,10 @@ tiles, so each gives what the Pallas kernel gives for any ``bc``:
   (x and w row-major, read as float2 and float4), 132 KB of shared memory:
   one block per SM, with the registers that leaves it.  Launches counted
   in ``moe_gmm_fwd.launches``.
+
+Any other floating type (float16, or operands of mixed types) computes in
+f32 and returns the type of ``x``
+(:func:`~repro_torch.kernels._cuda.prepare`).
 """
 from __future__ import annotations
 
@@ -58,12 +62,14 @@ def moe_gmm_plain(x, w, counts, *, bc: int = 128, bf: int = 128,
 
 def moe_gmm_fwd(x, w, counts, *, bc: int = 128, bf: int = 128,
                 bd: int = 128):
-    """x: [E,C,D]; w: [E,D,F] (f32 or bf16, one type); counts: [E] int32.
-    Returns [E,C,F] in the input type.  On the card ``bf`` and ``bd`` (the
+    """x: [E,C,D]; w: [E,D,F] (floating point); counts: [E] (integer).
+    Returns [E,C,F] in the type of ``x``.  On the card ``bf`` and ``bd`` (the
     Pallas output and contraction tiles) do not change the result and are
     not used; ``bc`` decides which rows are live."""
     if not _cuda.on_cuda(x, w, counts):
         return moe_gmm_plain(x, w, counts, bc=bc, bf=bf, bd=bd)
+    out_dtype = x.dtype
+    (x, w), _, (counts,) = _cuda.prepare((x, w), i32=(counts,))
     E, C, D = x.shape
     F = w.shape[-1]
     _cuda.require(x, "x", _cuda.FLOATS, (E, C, D))
@@ -78,13 +84,13 @@ def moe_gmm_fwd(x, w, counts, *, bc: int = 128, bf: int = 128,
                      x.data_ptr(), w.data_ptr(), counts.data_ptr(),
                      out.data_ptr(), E, C, D, F, min(bc, C))
         moe_gmm_fwd.sm90_launches += 1
-        return out
+        return out.to(out_dtype)
     _cuda.launch("moe_gmm", [P, P, P, P, I, I, I, I, I, I], x.device,
                  x.data_ptr(), w.data_ptr(), counts.data_ptr(),
                  out.data_ptr(), E, C, D, F, min(bc, C),
                  _cuda.DTYPE_CODE[x.dtype])
     moe_gmm_fwd.launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 def tma_loadable(x, w) -> bool:

@@ -169,6 +169,21 @@ def test_atomic_add_and_conflicting_stores_follow_lane_order():
     _check_all(*edge.atomic_order_case(ref_ir))
 
 
+def test_shuffle_reads_clamped_and_masked_lanes_as_the_interpreter():
+    """A shuffle's source lane clamps to [0, T - 1] and is read whatever
+    its mask; under a predicate only the active lanes write."""
+    _check_all(*edge.shuffle_case(ref_ir))
+
+
+@pytest.mark.parametrize("label", [label for label, _ in
+                                   edge.wide_cases(32, ref_ir)])
+def test_blocks_of_2048_lanes_match_reference_interp(label):
+    """The cross-lane programs in blocks of 2048 lanes, where a thread of
+    the CUDA kernel runs two: the plain version's bits are the
+    interpreter's."""
+    _check_all(*dict(edge.wide_cases(2048, ref_ir))[label])
+
+
 def test_edge_grids_built_by_either_package_are_the_same_programs():
     """chip_smoke.py builds the edge grids with the port's hetIR; the
     tests above build them with the reference's."""

@@ -145,7 +145,7 @@ def test_emitted_source_of_a_staged_segment():
     # K (read-only) is a restrict pointer read through the window; the
     # copy runs ahead of the QK loop, which is unrolled
     assert "const float* __restrict__ g0" in body
-    assert "het_stage_copy<128>(st0, sw0, sl0, g0, n0, t, T);" in body
+    assert "het_stage_copy<128>(st0, sw0, sl0, g0, n0, tid, NT);" in body
     assert "het_stage_ld<128>(st0, sw0, sl0, g0, n0," in body
     assert body.index("het_stage_copy") < body.index("#pragma unroll 8")
     assert "het_block_max<float>" in body and "het_block_add<float, false>" \
@@ -202,3 +202,61 @@ def test_f32_kernel_sources_hash_the_simt_header(name):
 def test_new_edge_grids_are_in_the_card_run():
     labels = dict(edge.all_cases(ref_ir))
     assert {"reduce_max_ties", "staged_window"} <= set(labels)
+
+
+# ---------------------------------------------------------------------------
+# hetIR blocks wider than 1024 lanes
+# ---------------------------------------------------------------------------
+
+def test_lanes_per_thread_cover_any_block():
+    assert [cb.lanes_per_thread(T) for T in (1, 32, 1024, 1025, 1536, 2048,
+                                             2049, 5000)] == \
+        [1, 1, 1, 2, 2, 2, 3, 5]
+    for T in (1, 1024, 1025, 2048, 2049, 5000):
+        L = cb.lanes_per_thread(T)
+        threads = -(-T // L)
+        assert threads <= cb.MAX_BLOCK and threads * L >= T
+
+
+@pytest.mark.parametrize("T", [32, 1024, 1536, 2048])
+def test_segment_plan_and_fingerprint_do_not_depend_on_the_block(T):
+    # the optimized program, its segments and their kernels' slots are the
+    # same at every block size: one library per lane count serves them all
+    prog, grid, block, args, _ = edge.divergent_folds_case(block=T)
+    want_prog, _, _, wargs, _ = edge.divergent_folds_case(block=32)
+    got = _optimized(prog, grid, T, args, OPT_MAX)
+    want = _optimized(want_prog, grid, 32, wargs, OPT_MAX)
+    assert ir.program_fingerprint(got) == ir.program_fingerprint(want)
+    assert [(n.index, n.label) for n in cb.program_nodes(got)
+            if isinstance(n, SegNode)] == \
+        [(n.index, n.label) for n in cb.program_nodes(want)
+         if isinstance(n, SegNode)]
+    src, kernels = cb.emit_module(got)
+    assert src == cb.emit_module(want)[0]
+
+
+def test_scalar_source_runs_several_lanes_a_thread():
+    prog = _optimized(*edge.divergent_folds_case(block=2048)[:4], 0)
+    one, kernels = cb.emit_module(prog)
+    two, again = cb.emit_module(prog, lanes=2)
+    assert kernels.keys() == again.keys()
+    assert "constexpr int HL = 1;" in one and "constexpr int HL = 2;" in two
+    body = two[two.index("_s(const HetArgs a)"):]
+    body = body[:body.index('extern "C" int launch_')]
+    # registers are arrays of the thread's lanes, every lane statement runs
+    # in HET_LANES; the folds take the thread's lanes and the block's T
+    assert "const int tid = threadIdx.x, NT = blockDim.x;" in body
+    assert "[HL];" in body and "HET_LANES(" in body
+    assert "het_block_add<float, false>(x" in body and ", tid, NT, T," in body
+    assert "het_block_max<float>(x" in body
+    assert "__syncthreads_count(" in body and "l_ < HL" in body
+    # the scratch is indexed by hetIR lane: sized by T, not by the threads
+    assert "scr_v = scr + het_even(T) + 2 * T;" in body
+    assert "blockDim" not in body.split("NT = blockDim.x;", 1)[1]
+    rt = (nvcc_build.CSRC / "hetir_rt.cuh").read_text()
+    lanes = rt[rt.index("#define HET_LANES"):]
+    assert "const int t = tid + l_ * NT;" in lanes and "t < T" in lanes
+    # the scalar kernel's shared memory follows T whatever the lanes
+    seg = next(n for n in cb.program_nodes(prog) if isinstance(n, SegNode))
+    sl = cb.SegmentSlots(seg, prog, set())
+    assert cb.smem_bytes(prog, sl, True, 2048) == 4 * (2048 + 4 * 2048 + 2)

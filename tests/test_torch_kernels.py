@@ -242,6 +242,26 @@ def test_mlstm_chunk_plain_and_ref_match_jax(BH, S, dk, dv, bt):
     _close(ref_c, jref_c, 2e-3)
 
 
+@pytest.mark.parametrize("bt,dk", [(256, 16), (128, 704)])
+def test_mlstm_chunk_plain_long_chunks_and_wide_keys_match_jax(bt, dk):
+    # the domain the card's kernels now take: chunks past 128 steps (run
+    # there as chunks of 128) and keys wider than 640 (S a multiple of bt:
+    # the Pallas kernel reads a partial last chunk past the end)
+    ins = _mlstm_inputs(np.random.default_rng(15), 1, 512, dk, 8)
+    jins, tins = [a for a, _ in ins], [b for _, b in ins]
+    want_y, want_c = jax_mlstm(*jins, bt=bt, interpret=True)
+    got_y, got_c = mlstm_chunk_plain(*tins, bt=bt)
+    _close(got_y, want_y, 2e-3)
+    _close(got_c, want_c, 2e-3)
+    ref_y, ref_c = jax_mlstm_ref(*jins)
+    _close(got_y, ref_y, 2e-3)
+    _close(got_c, ref_c, 2e-3)
+    # chunks of 128 compute the same function
+    y128, c128 = mlstm_chunk_plain(*tins, bt=128)
+    _close(y128, want_y, 2e-3)
+    _close(c128, want_c, 2e-3)
+
+
 def test_mlstm_chunk_tiling_invariance():
     ins = _mlstm_inputs(np.random.default_rng(10), 1, 256, 64, 64,
                         gate_one=True)
@@ -290,6 +310,30 @@ def _small_calls(device):
 
 _WRAPPERS = {"flash_attention": flash_attention_fwd, "moe_gmm": moe_gmm_fwd,
              "rglru_scan": rglru_scan_fwd, "mlstm_chunk": mlstm_chunk_fwd}
+
+
+def test_prepare_takes_contiguous_copies_and_computes_f16_in_f32():
+    x = torch.arange(24, dtype=torch.float16).reshape(2, 3, 4)
+    strided = x.transpose(1, 2)
+    (a, b), (g,), (c,) = _cuda.prepare(
+        (strided, x), f32=(torch.ones(2, 1, dtype=torch.float64),),
+        i32=(torch.tensor([3, 5]),))
+    # another floating type: every operand in f32, values exact
+    assert a.dtype == b.dtype == torch.float32
+    assert a.is_contiguous() and torch.equal(a, strided.float())
+    assert g.dtype == torch.float32 and c.dtype == torch.int32
+    # back to the first operand's type, as the Pallas bodies' stores
+    assert torch.equal(a.to(strided.dtype), strided)
+    # one type the kernels compute in: kept; a contiguous one not copied
+    bf = torch.ones(4, 3, dtype=torch.bfloat16)
+    (k1, k2), _, _ = _cuda.prepare((bf, bf.t()))
+    assert k1.dtype == torch.bfloat16 and k1.data_ptr() == bf.data_ptr()
+    assert k2.is_contiguous() and torch.equal(k2, bf.t())
+    # mixed types: f32, whatever they are
+    (m1, m2), _, _ = _cuda.prepare((bf, torch.ones(4, 3)))
+    assert m1.dtype == m2.dtype == torch.float32
+    with pytest.raises(ValueError, match="floating-point"):
+        _cuda.prepare((torch.ones(3, dtype=torch.int32),))
 
 
 @pytest.mark.parametrize("name", _cuda.KERNELS)

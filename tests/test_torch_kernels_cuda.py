@@ -9,7 +9,12 @@ copies for unaligned rows), bf16 on wgmma/TMA (every head-width build,
 held to one bf16 step); and both grouped matmul kernels: bf16 on
 wgmma/TMA where TMA can load the rows, the CUDA-core kernel otherwise
 (f32 and the other bf16), each case asserting by launch count which one
-ran.
+ran.  The domain the reference takes: bf16 flash attention that TMA
+cannot load and heads wider than 256 (each on its build's launch count),
+mLSTM chunks of 16 to 256 steps and keys of 8 to 704, float16 and
+non-contiguous inputs to every op; and hetIR blocks of 1536 and 2048
+lanes, several to a thread of the scalar segment kernels, bit-equal to
+the interpreter.
 
 Marked ``gpu``: without a CUDA device every test skips.  On a machine with
 one (no jax needed), from the checkout root:
@@ -20,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import HetSession, TranslationCache, edge_grids
+from repro_torch.core import hetir as ir
 from repro_torch.kernels import flash_attention, mlstm_chunk, moe_gmm, \
     rglru_scan
 from repro_torch.kernels.flash_attention.kernel import (
@@ -118,23 +125,62 @@ def test_flash_attention_kernel_matches_plain(dev, B, H, Sq, Sk, d, causal,
                                    rtol=rtol)
 
 
-def test_flash_attention_bf16_refuses_what_tma_cannot_load(dev):
-    q = torch.zeros((1, 1, 64, 100), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        flash_attention_fwd(q, q, q)
-    buf = torch.zeros(1 * 1 * 64 * 64 + 1, dtype=torch.bfloat16, device=dev)
-    odd = buf[1:].view(1, 1, 64, 64)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        flash_attention_fwd(odd, odd, odd)
-
-
 def _view_off_16_bytes(t):
     """``t``'s values in a tensor that starts 4 bytes past a 16-byte
     boundary: the kernels' element-by-element copies."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = buf[1:].view(t.shape)
+    off = 4 // t.element_size()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    out = buf[off:].view(t.shape)
     out.copy_(t)
     return out
+
+
+def _counts():
+    fa = flash_attention_fwd
+    return (fa.launches, fa.sm90_launches, fa.simt_bf16_launches,
+            fa.wide_launches)
+
+
+@pytest.mark.parametrize("d,unaligned,causal,window", [
+    (4, False, True, None), (100, False, True, 33), (64, True, True, None),
+    (100, True, False, 7)])
+def test_flash_attention_bf16_tma_cannot_load_matches_plain(
+        dev, d, unaligned, causal, window):
+    # d % 8 != 0, or 4 bytes off a 16-byte boundary: the bf16 build of the
+    # CUDA-core kernel, not the wgmma/TMA one
+    rng = np.random.default_rng(8)
+    q, k, v = (_t(rng.normal(size=(2, 2, 150, d)), dev, "bf16")
+               for _ in range(3))
+    if unaligned:
+        q, k, v = (_view_off_16_bytes(t) for t in (q, k, v))
+    before = _counts()
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert _counts() == (before[0], before[1], before[2] + 1, before[3])
+    atol, rtol = BF16_ATTN_TOL
+    for want in (flash_attention_plain(q, k, v, causal=causal,
+                                       window=window),
+                 attention_ref(q, k, v, causal=causal, window=window)):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("d,Sq,Sk,causal,window,dt", [
+    (320, 200, 200, True, None, "f32"), (512, 130, 130, False, 40, "f32"),
+    (320, 150, 150, True, 17, "bf16"), (300, 100, 170, False, None, "f32")])
+def test_flash_attention_wide_heads_match_plain(dev, d, Sq, Sk, causal,
+                                                window, dt):
+    rng = np.random.default_rng(9)
+    q = _t(rng.normal(size=(1, 2, Sq, d)), dev, dt)
+    k, v = (_t(rng.normal(size=(1, 2, Sk, d)), dev, dt) for _ in range(2))
+    before = _counts()
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert _counts() == before[:3] + (before[3] + 1,)
+    atol, rtol = BF16_ATTN_TOL if dt == "bf16" else (2e-5, 2e-5)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.parametrize("d,causal,window", [(61, True, None),
@@ -259,14 +305,28 @@ def test_moe_gmm_sm90_kernel_matches_plain(dev, E, C, D, F, bc, counts,
         assert bool((got[past] != 0).any())
 
 
-@pytest.mark.parametrize("B,S,D,dt", [(2, 300, 70, "f32"),
-                                      (1, 257, 2560, "bf16")])
-def test_rglru_scan_kernel_bit_equal_to_plain(dev, B, S, D, dt):
+@pytest.mark.parametrize("B,S,D,dt,unaligned", [
+    (2, 300, 70, "f32", False),
+    (1, 257, 2560, "bf16", False),
+    # S off the time tiles (128 steps of bf16, 64 of f32), D off the
+    # 16-channel groups (whole 16-byte chunks, or element copies where a
+    # row does not start on 16 bytes), B > 1, an unaligned tensor
+    (2, 1000, 2568, "bf16", False),
+    (3, 129, 37, "bf16", False),
+    (2, 65, 100, "f32", False),
+    (2, 200, 64, "f32", True),
+    (1, 4096, 2560, "bf16", False),
+])
+def test_rglru_scan_kernel_bit_equal_to_plain(dev, B, S, D, dt, unaligned):
     rng = np.random.default_rng(2)
     a = _t(rng.uniform(0.7, 0.999, (B, S, D)), dev, dt)
     x = _t(rng.normal(size=(B, S, D)) * 0.1, dev, dt)
     h0 = _t(rng.normal(size=(B, D)) * 0.1, dev)
+    if unaligned:
+        a, x = _view_off_16_bytes(a), _view_off_16_bytes(x)
+    before = rglru_scan_fwd.launches
     h, hT = rglru_scan_fwd(a, x, h0)
+    assert rglru_scan_fwd.launches == before + 1
     ph, phT = rglru_scan_plain(a, x, h0)
     torch.cuda.synchronize()
     assert torch.equal(h, ph) and torch.equal(hT, phT)
@@ -280,6 +340,16 @@ def test_rglru_scan_kernel_bit_equal_to_plain(dev, B, S, D, dt):
     (3, 300, 96, 130, 128, "f32"),
     (1, 250, 33, 20, 100, "f32"),
     (2, 128, 64, 64, 128, "bf16"),
+    # chunks of 16, 100 (a partial last chunk), 128 and 256 (run as two of
+    # 128); dk of 8, 384 (one 384-row state tile) and 704 (two); dv off the
+    # 32- and 128-column tiles; f32 and bf16
+    (2, 70, 8, 36, 16, "f32"),
+    (1, 333, 384, 100, 100, "f32"),
+    (2, 300, 704, 40, 128, "f32"),
+    (1, 600, 128, 64, 256, "f32"),
+    (1, 250, 384, 132, 128, "bf16"),
+    (1, 180, 704, 24, 256, "bf16"),
+    (2, 90, 8, 8, 16, "bf16"),
 ])
 def test_mlstm_chunk_kernel_matches_plain(dev, BH, S, dk, dv, bt, dt):
     rng = np.random.default_rng(3)
@@ -336,21 +406,138 @@ def test_ops_gradients_on_the_card(dev):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    f16 = torch.zeros((1, 1, 8, 8), dtype=torch.float16, device=dev)
-    with pytest.raises(ValueError, match="float16"):
-        flash_attention_fwd(f16, f16, f16)
-    wide = torch.zeros((1, 1, 8, 264), device=dev)
-    with pytest.raises(ValueError, match="d=264"):
-        flash_attention_fwd(wide, wide, wide)
-    x = torch.zeros((2, 8, 4), device=dev)
-    with pytest.raises(ValueError, match="counts"):
+    # what the reference refuses too: shapes that do not fit together,
+    # empty dimensions, tensors on several devices
+    q = torch.zeros((1, 1, 8, 16), device=dev)
+    with pytest.raises(ValueError, match="k: got"):
+        flash_attention_fwd(q, torch.zeros((1, 1, 8, 12), device=dev), q)
+    x = torch.zeros((2, 0, 4), device=dev)
+    with pytest.raises(ValueError, match="non-empty"):
         moe_gmm_fwd(x, torch.zeros((2, 4, 4), device=dev),
-                    torch.zeros(2, dtype=torch.int64, device=dev))
+                    torch.zeros(2, dtype=torch.int32, device=dev))
     a = torch.zeros((1, 8, 4), device=dev)
-    with pytest.raises(ValueError, match="non-contiguous"):
-        rglru_scan_fwd(a.transpose(1, 2).contiguous().transpose(1, 2), a,
-                       torch.zeros((1, 4), device=dev))
-    q = torch.zeros((1, 8, 704), device=dev)
-    g = torch.zeros((1, 8, 1), device=dev)
-    with pytest.raises(ValueError, match="dk=704"):
-        mlstm_chunk_fwd(q, q, q, g, g)
+    with pytest.raises(ValueError, match="several devices"):
+        rglru_scan_fwd(a, a, torch.zeros((1, 4)))
+    g = torch.zeros((1, 8, 2), device=dev)
+    with pytest.raises(ValueError, match="lf: got"):
+        mlstm_chunk_fwd(a, a, a, g, g)
+
+
+def _f16_and_strided_calls(dev, rng):
+    """One call of each wrapper on float16 tensors and on non-contiguous
+    views (transposed copies), with the tolerance of the comparison: the
+    kernel's in f32 and one float16 step (2^-10 of the value) between two
+    roundings of f32 results."""
+    def f16(*shape, scale=1.0, lo=None):
+        a = rng.uniform(lo, 0.999, shape) if lo is not None \
+            else rng.normal(size=shape) * scale
+        return torch.from_numpy(a.astype(np.float32)).to(dev).half()
+
+    def strided(t):   # the same values, last two dimensions' strides swapped
+        return t.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+    q, k, v = (f16(1, 2, 90, 40) for _ in range(3))
+    x, w = f16(3, 70, 24), f16(3, 24, 36, scale=0.2)
+    counts = torch.tensor([0, 33, 70], device=dev)          # int64
+    a, xr, h0 = f16(2, 50, 24, lo=0.7), f16(2, 50, 24, scale=0.1), \
+        f16(2, 24, scale=0.1)
+    mq, mk, mv = (f16(2, 70, 16, scale=0.5) for _ in range(3))
+    lf = torch.log(f16(2, 70, 1, lo=0.9).float()).half()
+    gi = f16(2, 70, 1, lo=0.1)
+    tol = 2.0 ** -10
+    return {
+        "flash_attention": [
+            (lambda fn: fn(q, k, v, causal=True, window=None), 2e-5 + tol),
+            (lambda fn: fn(strided(q.float()), k.float(), strided(v.float()),
+                           causal=True, window=None), 2e-5)],
+        "moe_gmm": [
+            (lambda fn: fn(x, w, counts), 1e-4 + tol),
+            (lambda fn: fn(strided(x.float()), strided(w.float()), counts),
+             1e-4)],
+        "rglru_scan": [
+            (lambda fn: fn(a, xr, h0), 0.0),
+            (lambda fn: fn(strided(a.float()), xr.float(), h0.float()),
+             0.0)],
+        "mlstm_chunk": [
+            (lambda fn: fn(mq, mk, mv, lf, gi, bt=32), 2e-3 + tol),
+            (lambda fn: fn(strided(mq.float()), mk.float(),
+                           strided(mv.float()), lf, gi, bt=32), 2e-3)],
+    }
+
+
+_FWD = {"flash_attention": (flash_attention_fwd, flash_attention_plain),
+        "moe_gmm": (moe_gmm_fwd, moe_gmm_plain),
+        "rglru_scan": (rglru_scan_fwd, rglru_scan_plain),
+        "mlstm_chunk": (mlstm_chunk_fwd, mlstm_chunk_plain)}
+
+
+@pytest.mark.parametrize("name", sorted(_FWD))
+def test_wrappers_take_f16_and_non_contiguous_inputs(dev, name):
+    # float16 computes in f32 and returns float16; a non-contiguous view
+    # is copied; both launch the kernel and match the plain version
+    fwd, plain = _FWD[name]
+    for call, tol in _f16_and_strided_calls(
+            dev, np.random.default_rng(12))[name]:
+        before = sum(getattr(fwd, a) for a in dir(fwd)
+                     if a.endswith("launches"))
+        got = call(fwd)
+        assert sum(getattr(fwd, a) for a in dir(fwd)
+                   if a.endswith("launches")) == before + 1
+        want = call(plain)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.dtype == w.dtype
+            torch.cuda.synchronize()
+            if tol == 0:
+                assert torch.equal(g, w)
+            else:
+                torch.testing.assert_close(g.float(), w.float(), atol=tol,
+                                           rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# hetIR blocks wider than 1024 lanes: several lanes to a thread of the
+# scalar segment kernels
+# ---------------------------------------------------------------------------
+
+WIDE_CASES = [f"edge:{label}" for label, _ in edge_grids.wide_cases(32)] \
+    + list(edge_grids.WIDE_SUITE)
+
+
+def _wide_case(case, T):
+    if case.startswith("edge:"):
+        return dict(edge_grids.wide_cases(T))[case[5:]]
+    return edge_grids.wide_suite_case(case, T)
+
+
+def _het_run(backend, device, prog, grid, block, args, outs):
+    s = HetSession(backend, opt_level=0, device=device,
+                   cache=TranslationCache())
+    fn = s.load(prog).function()
+    bound = {p.name: s.alloc(int(args[p.name].size), p.dtype)
+             .copy_from_host(args[p.name]) if isinstance(p, ir.Ptr)
+             else args[p.name] for p in prog.params}
+    rec = fn.launch_async(grid, block, bound)
+    assert rec.wait()
+    return s, {o: rec.buffer(o).copy_to_host() for o in outs}
+
+
+def _bits(a):
+    a = np.asarray(a)
+    if a.dtype == np.float32:
+        a = np.where(np.isnan(a), np.float32(np.nan), a).view(np.uint32)
+    return a
+
+
+@pytest.mark.parametrize("T", [1536, 2048])
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_hetir_blocks_wider_than_1024_lanes_bit_equal_to_interp(dev, case,
+                                                                 T):
+    prog, grid, block, args, outs = _wide_case(case, T)
+    s, got = _het_run("cuda", dev, prog, grid, block, args, outs)
+    torch.cuda.synchronize()
+    assert s.backend.launches["scalar"] > 0
+    _, want = _het_run("interp", "cpu", prog, grid, block, args, outs)
+    for o in outs:
+        np.testing.assert_array_equal(_bits(got[o]), _bits(want[o]),
+                                      err_msg=f"{case} T={T} {o}")
