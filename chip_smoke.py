@@ -76,7 +76,35 @@ card) and against the NumPy oracles:
    and ``het_kernel`` runs a suite program on the card bit-equal to
    ``het_kernel_ref``.
 
-Phase 4 runs last and also times the six library kernels (CUDA events,
+6. the runtime around the kernels, on the card, over the CUDA segment
+   kernels: (a) a fresh process on an empty local ``DiskStore`` removes
+   the segment libraries of the 21 programs at O0 and OPT_MAX from the
+   build directory and builds them (one ``nvcc`` per module, through the
+   translation cache), and a second fresh process, the libraries removed
+   again, restores every module from the store with no ``nvcc`` — both
+   run every canonical launch bit-equal to the interpreter; (b) three
+   fresh processes started together on one ``SharedStore`` fabric, each
+   with an empty build directory of its own, run one ``nvcc`` per module
+   between them, fetch every module they did not build, and give the same
+   bits; (c) ``ServingFrontEnd`` on a ``cuda`` session with the
+   JAX package's serving smoke (1200 launches from 8 weighted tenants,
+   fair shares within 15 %, >= 90 % steady-state pool reuse, p99 under
+   its SLO, an oversubscribed phase that sheds and loses nothing), every
+   output bit-equal to the interpreter, p50/p99 to the device event after
+   each request's last segment, and the device's busy share from a
+   profiled run; (d) a ``FleetCoordinator`` of ``cuda``, ``cuda`` and
+   ``interp`` workers with a retry-queue directory: worker 0 is killed by
+   ``kill -9`` at the ``mid-kernel`` fault point and its launches replay,
+   worker 1 is drained to the ``interp`` worker by checkpoint/restore
+   across backends, every launch finishes bit-equal to the interpreter
+   with none lost and none acknowledged twice; the drain's checkpoint,
+   transfer and restore milliseconds.  The segment-kernel launches of
+   each part are counted where they happen (in the child processes and
+   the fleet's worker) and printed; the kernels line carries them as
+   ``phase6_launches``.
+
+Phase 4 runs after phase 5, phase 6 after phase 4.  Phase 4 also times
+the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
 versions, and the one PyTorch call that computes the same function where
 there is one (``scaled_dot_product_attention`` for flash attention,
@@ -100,11 +128,14 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -206,6 +237,26 @@ REPLACES = {
 #: flash builds are builds of flash_attention.cu)
 KERNEL_SOURCE = {"flash_attention_bf16": "flash_attention",
                  "flash_attention_wide": "flash_attention"}
+
+
+#: phase 6 (c): the serving smoke of the JAX package's
+#: benchmarks/bench_serving.py — 8 weighted tenants keep 16 requests each
+#: in flight until 1200 are admitted; a request is one persistent_counter
+#: launch of 4 segments over a 64-element state allocated per request
+SERVE_TENANTS, SERVE_LAUNCHES, SERVE_BACKLOG = 8, 1200, 16
+SERVE_WEIGHTS = (1.0, 1.0, 2.0, 2.0, 3.0, 3.0, 4.0, 4.0)
+SERVE_ITERS, SERVE_STATE = 4, 64
+#: its bars: shares within 15 %, steady-state pool reuse, the smoke's SLO
+SERVE_SHARE_ERR, SERVE_REUSE, SERVE_P99_MS = 0.15, 0.90, 2000.0
+#: the oversubscribed phase: quota 4, 8 bursts of 8 requests per tenant
+SHED_QUOTA, SHED_BURSTS, SHED_BURST = 4, 8, 8
+#: requests of the profiled serving run that gives the busy share
+SERVE_PROFILED_LAUNCHES = 240
+#: phase 6 (d): the fleet's launches (canonical example launches)
+FLEET_KERNELS = ("dyn_matmul", "decode_gemv", "attn_decode")
+FLEET_COPIES = 3
+#: the three fresh processes of phase 6 (b) that share one fabric
+FABRIC_PROCS = 3
 
 
 class SmokeFailure(Exception):
@@ -321,7 +372,7 @@ def kernel_device_ms(backend, go) -> tuple:
             return err
         return timed
 
-    for mod in backend._modules.values():
+    for mod in backend.modules():
         for key, fn in list(mod.fns.items()):
             wrapped.append((mod, key, fn))
             mod.fns[key] = timing(key, fn)
@@ -721,6 +772,478 @@ def check_library_grads(dev) -> None:
                   f"{name}: gradient through the op != oracle's")
 
 
+def bits_digest(arrays) -> str:
+    """sha256 over arrays' raw bytes, every float32 NaN mapped to one
+    pattern (as :func:`same_bits` compares)."""
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.asarray(a)
+        if a.dtype == np.float32:
+            a = np.where(np.isnan(a), np.float32(np.nan), a)
+        h.update(str(a.dtype).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def example_programs(backend, levels) -> list:
+    """``(name, level, optimized program)`` of every suite and zoo
+    program's canonical launch: what the translation phases warm."""
+    import numpy as np
+    from repro_torch.core import Engine
+    from repro_torch.core import kernels_suite as ks
+    out = []
+    for name in list(ks.SUITE) + list(ks.registered_examples("zoo")):
+        for lvl in levels:
+            prog, _, grid, block, args, _ = ks.example_launch(
+                name, rng=np.random.default_rng(42))
+            out.append((name, lvl, Engine(prog, backend, grid, block, args,
+                                          opt_level=lvl).program))
+    return out
+
+
+def remove_libraries(programs) -> int:
+    """Delete the segment libraries of ``programs`` from the build
+    directory (a process that loaded one keeps its mapping)."""
+    from repro_torch.core.backends import nvcc_build
+    from repro_torch.core.backends.cuda_backend import emit_module
+    removed = 0
+    for prog in programs:
+        so = nvcc_build.library_path(emit_module(prog)[0])
+        for path in (so, so.with_suffix(".cu")):
+            if path.exists():
+                path.unlink()
+                removed += path.suffix == ".so"
+    return removed
+
+
+def phase6_child(role: str, directory: str, build_dir: str = "",
+                 device: str = "cuda:0") -> int:
+    """One process of phase 6 (a)/(b): a cache on a fresh tier — ``cold``
+    and ``warm`` on a local DiskStore at ``directory``, ``fabric`` on a
+    SharedStore there and no local store — takes every suite and zoo
+    program at O0 and OPT_MAX to its segment library through
+    ``CudaBackend.prebuild`` (cold and warm remove the libraries from the
+    build directory first; ``build_dir``, where given, replaces the
+    checkout's build directory, so a library built by another process
+    reaches this one only through its tiers), then runs every canonical
+    launch on the card and on the interpreter.  Prints one JSON line: the nvcc builds, the
+    cache's counters after the warm-up, its milliseconds, the mismatches
+    and a digest of the outputs."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch import zoo  # noqa: F401
+    from repro_torch.core import (DiskStore, HetSession, OPT_MAX,
+                                  SharedStore, TranslationCache)
+    from repro_torch.core import kernels_suite as ks
+    from repro_torch.core.backends import nvcc_build
+    if build_dir:
+        nvcc_build.BUILD_DIR = Path(build_dir)
+    dev = torch.device(device)
+    if role == "fabric":
+        cache = TranslationCache(shared=SharedStore(directory))
+    else:
+        cache = TranslationCache(store=DiskStore(directory))
+    levels = (0, OPT_MAX)
+    sessions = {lvl: HetSession("cuda", opt_level=lvl, device=dev,
+                                cache=cache) for lvl in levels}
+    progs = example_programs(sessions[0].backend, levels)
+    optimized = [p for _, _, p in progs]
+    if role != "fabric":
+        remove_libraries(optimized)
+    t0 = time.perf_counter()
+    rep = sessions[0].backend.prebuild(optimized)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    st = cache.stats()
+    outs, mismatches = [], []
+    for name, lvl, _ in progs:
+        got = {}
+        for backend, device in (("cuda", dev), ("interp", "cpu")):
+            prog, _, grid, block, args, names = ks.example_launch(
+                name, rng=np.random.default_rng(42))
+            s = sessions[lvl] if backend == "cuda" else HetSession(
+                "interp", opt_level=lvl, device=device,
+                cache=TranslationCache())
+            _, got[backend] = run_launch(s, prog, grid, block, args, names)
+        for o in names:
+            outs.append(got["cuda"][o])
+            if not same_bits(got["cuda"][o], got["interp"][o]):
+                mismatches.append(f"{name} O{lvl} {o}")
+    launches = {k: sum(s.backend.launches[k] for s in sessions.values())
+                for k in ("scalar", "block")}
+    print(json.dumps({
+        "role": role, "modules": rep["modules"],
+        "built": sum(s.backend.nvcc["built"] for s in sessions.values()),
+        "nvcc_s": sum(s.backend.nvcc["seconds"]
+                      for s in sessions.values()),
+        "warm_ms": warm_ms,
+        "translated": st["translated"], "restored": st["restored"],
+        "libraries_written": st["libraries_written"],
+        "fetched": st["shared_fetches"], "published": st["shared_publishes"],
+        "launches": launches, "mismatches": mismatches,
+        "digest": bits_digest(outs)}))
+    return 0
+
+
+def _start_child(role: str, directory, build_dir="") -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--phase6-child",
+         role, str(directory), str(build_dir)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _child_result(proc: subprocess.Popen) -> dict:
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure("a phase 6 child did not finish in 600 s")
+    check(proc.returncode == 0,
+          f"phase 6 child failed ({proc.returncode}):\n{err[-4000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    check(not res["mismatches"],
+          f"phase 6 {res['role']}: cuda != interp for {res['mismatches']}")
+    return res
+
+
+def serve_scenario(session, fn, expected, n_tenants, total, backlog,
+                   profile=False) -> dict:
+    """The serving smoke's phase 1 on ``session``: ``n_tenants`` weighted
+    tenants (``SERVE_WEIGHTS``) keep ``backlog`` requests each in flight
+    until ``total`` are admitted, reaping (and freeing) completions; the
+    fair-share window is measured mid-run with every tenant backlogged.
+    A tenant's requests start from its seeded state and must end with
+    ``expected[tenant]``'s bits.  ``profile``: run under torch.profiler
+    and return the device time of its kernels and copies as well."""
+    import numpy as np
+    from repro_torch.core import ServingFrontEnd
+    front = ServingFrontEnd(session, max_inflight=n_tenants * backlog,
+                            default_quota=backlog)
+    names = [f"t{i}" for i in range(n_tenants)]
+    for i, name in enumerate(names):
+        front.tenant(name, weight=SERVE_WEIGHTS[i % len(SERVE_WEIGHTS)])
+    init = {name: expected[name][0] for name in names}
+    live, results = [], []
+    submitted = [0]
+
+    def submit(name):
+        db = session.alloc(SERVE_STATE).copy_from_host(init[name])
+        live.append((front.submit(name, fn, 2, 32,
+                                  {"State": db, "iters": SERVE_ITERS}),
+                     db))
+        submitted[0] += 1
+
+    def reap_free():
+        still = []
+        for ticket, db in live:
+            if ticket.done():
+                results.append((ticket.tenant, db.data.clone()))
+                db.free()
+            else:
+                still.append((ticket, db))
+        live[:] = still
+
+    def run():
+        for name in names:
+            for _ in range(backlog):
+                submit(name)
+        pool0 = session.pool_stats()
+        session.sched_trace.clear()
+        session.step(50 * n_tenants)
+        counts = {front.tenants[n].stream.sid: 0 for n in names}
+        for t in session.sched_trace:
+            if t["stream"] in counts:
+                counts[t["stream"]] += 1
+        while submitted[0] < total or live:
+            front.pump(64)
+            reap_free()
+            for name in names:
+                while (submitted[0] < total
+                       and len(front.tenants[name].inflight) < backlog):
+                    submit(name)
+        front.drain()
+        reap_free()
+        return pool0, counts
+
+    t0 = time.perf_counter()
+    dev_ms = None
+    if profile:
+        import torch
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            pool0, counts = run()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                     if e.device_type != torch.autograd.DeviceType.CPU) \
+            or None
+    else:
+        pool0, counts = run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    total_segs = sum(counts.values()) or 1
+    total_w = sum(front.tenants[n].stream.weight for n in names)
+    share_err = max(abs(counts[front.tenants[n].stream.sid] / total_segs
+                        - front.tenants[n].stream.weight / total_w)
+                    / (front.tenants[n].stream.weight / total_w)
+                    for n in names)
+    agg = front.stats()
+    pool = session.pool_stats()
+    dh, dm = pool["hits"] - pool0["hits"], pool["misses"] - pool0["misses"]
+    wrong = [tenant for tenant, data in results
+             if not same_bits(data.cpu().numpy(), expected[tenant][1])]
+    return {"launches": agg["admitted"], "completed": agg["completed"],
+            "lost": agg["admitted"] - agg["completed"] - agg["inflight"],
+            "wall_ms": wall_ms, "p50_ms": agg.get("p50_ms"),
+            "p99_ms": agg.get("p99_ms"), "share_err": share_err,
+            "steady_reuse": dh / max(dh + dm, 1), "device_ms": dev_ms,
+            "checked": len(results), "wrong": wrong}
+
+
+def shed_scenario(session, fn, expected, n_tenants) -> dict:
+    """The serving smoke's phase 2: quota ``SHED_QUOTA``, bursts far above
+    it — the excess is rejected at admission, everything admitted
+    completes with the expected bits."""
+    from repro_torch.core import QuotaExceeded, ServingFrontEnd
+    front = ServingFrontEnd(session, max_inflight=n_tenants * SHED_QUOTA,
+                            default_quota=SHED_QUOTA)
+    names = [f"t{i}" for i in range(n_tenants)]
+    for i, name in enumerate(names):
+        front.tenant(name, weight=SERVE_WEIGHTS[i % len(SERVE_WEIGHTS)])
+    live, rejected = [], 0
+    for _ in range(SHED_BURSTS):
+        for name in names:
+            for _ in range(SHED_BURST):
+                db = session.alloc(SERVE_STATE).copy_from_host(
+                    expected[name][0])
+                try:
+                    live.append((front.submit(
+                        name, fn, 2, 32,
+                        {"State": db, "iters": SERVE_ITERS}), db))
+                except QuotaExceeded:
+                    db.free()
+                    rejected += 1
+        front.pump(16)
+    front.drain()
+    agg = front.stats()
+    wrong = [t.tenant for t, db in live
+             if not same_bits(db.copy_to_host(), expected[t.tenant][1])]
+    return {"offered": agg["admitted"] + agg["rejected"],
+            "admitted": agg["admitted"], "rejected": agg["rejected"],
+            "counted": rejected, "completed": agg["completed"],
+            "lost": agg["admitted"] - agg["completed"], "wrong": wrong}
+
+
+def serving_expected(n_tenants) -> dict:
+    """Each tenant's seeded initial state and its bits after one request,
+    from the interpreter on the CPU."""
+    import numpy as np
+    from repro_torch.core import HetSession, TranslationCache
+    from repro_torch.core import kernels_suite as ks
+    rng = np.random.default_rng(6)
+    s = HetSession("interp", device="cpu", cache=TranslationCache())
+    prog = ks.persistent_counter()[0]
+    out = {}
+    for i in range(n_tenants):
+        init = rng.standard_normal(SERVE_STATE).astype(np.float32)
+        _, got = run_launch(s, prog, 2, 32,
+                            {"State": init, "iters": SERVE_ITERS},
+                            ("State",))
+        out[f"t{i}"] = (init, got["State"])
+    return out
+
+
+def fleet_oracles() -> dict:
+    """The interpreter's outputs of each fleet kernel's canonical launch."""
+    import numpy as np
+    from repro_torch.core import HetSession, TranslationCache
+    from repro_torch.core import kernels_suite as ks
+    out = {}
+    for name in FLEET_KERNELS:
+        prog, _, grid, block, args, names = ks.example_launch(
+            name, rng=np.random.default_rng(42))
+        s = HetSession("interp", device="cpu", cache=TranslationCache())
+        out[name] = run_launch(s, prog, grid, block, args, names)[1]
+    return out
+
+
+def phase6(dev, smi: str) -> dict:
+    """Phase 6: the persistent tiers, the serving front end and the fleet
+    on the card, over the CUDA segment kernels.  Returns the scalar and
+    block segment-kernel launches of each part."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (FleetCoordinator, HetSession, OPT_MAX,
+                                  TranslationCache)
+    from repro_torch.core import kernels_suite as ks
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="hetgpu-phase6-") as tmp:
+        tmp = Path(tmp)
+        # (a) cold and warm translation on one local store
+        cold = _child_result(_start_child("cold", tmp / "store"))
+        check(cold["built"] == cold["modules"] and cold["restored"] == 0
+              and cold["translated"] == cold["modules"],
+              f"phase 6 cold: not one nvcc per module: {cold}")
+        warm = _child_result(_start_child("warm", tmp / "store"))
+        check(warm["built"] == 0 and warm["translated"] == 0
+              and warm["restored"] == warm["modules"]
+              and warm["libraries_written"] == warm["modules"],
+              f"phase 6 warm: not every module restored: {warm}")
+        check(warm["digest"] == cold["digest"],
+              "phase 6: warm outputs differ from cold")
+        print(f"phase 6 (a): {cold['modules']} segment libraries of the 21 "
+              f"programs at O0/O{OPT_MAX}: cold {cold['built']} nvcc builds "
+              f"({cold['nvcc_s']:.3f} s summed over the builds, warm-up "
+              f"{cold['warm_ms']:.1f} ms wall); warm, libraries removed: "
+              f"built 0, restored "
+              f"{warm['restored']}, written back {warm['libraries_written']}"
+              f", warm-up {warm['warm_ms']:.1f} ms; launches bit-equal to "
+              f"interp on {smi}")
+        launches["cold"], launches["warm"] = cold["launches"], \
+            warm["launches"]
+
+        # (b) three fresh processes on one fabric, each with an empty
+        # build directory of its own: a library one of them builds
+        # reaches the others only through the fabric
+        t0 = time.perf_counter()
+        procs = [_start_child("fabric", tmp / "fabric", tmp / f"build{i}")
+                 for i in range(FABRIC_PROCS)]
+        fab = [_child_result(p) for p in procs]
+        fab_s = time.perf_counter() - t0
+        modules = fab[0]["modules"]
+        check(sum(r["built"] for r in fab) == modules,
+              f"phase 6 fabric: {[r['built'] for r in fab]} nvcc builds "
+              f"for {modules} modules")
+        check(all(r["translated"] == r["built"]
+                  and r["fetched"] == r["restored"] == modules - r["built"]
+                  and r["digest"] == cold["digest"] for r in fab),
+              f"phase 6 fabric: a process neither built nor fetched a "
+              f"module, or its bits differ: {fab}")
+        print(f"phase 6 (b): {FABRIC_PROCS} fresh processes on one fabric: "
+              f"nvcc builds {[r['built'] for r in fab]} = one per module "
+              f"({modules}), fetched {[r['fetched'] for r in fab]}, "
+              f"results bit-equal; {fab_s:.1f} s wall")
+        launches["fabric"] = {k: sum(r["launches"][k] for r in fab)
+                              for k in ("scalar", "block")}
+
+        # (c) the serving front end on a cuda session
+        expected = serving_expected(SERVE_TENANTS)
+        serve = HetSession("cuda", device=dev, cache=TranslationCache())
+        fn = serve.load(ks.persistent_counter()[0]).function()
+        serve.backend.launches.update(scalar=0, block=0)
+        warmup = serve.alloc(SERVE_STATE)
+        fn.launch(2, 32, {"State": warmup, "iters": SERVE_ITERS})
+        load = serve_scenario(serve, fn, expected, SERVE_TENANTS,
+                              SERVE_LAUNCHES, SERVE_BACKLOG)
+        shed = shed_scenario(serve, fn, expected, SERVE_TENANTS)
+        prof = serve_scenario(serve, fn, expected, SERVE_TENANTS,
+                              SERVE_PROFILED_LAUNCHES, SERVE_BACKLOG,
+                              profile=True)
+        torch.cuda.synchronize()
+        launches["serving"] = dict(serve.backend.launches)
+        check(load["launches"] >= SERVE_LAUNCHES and load["lost"] == 0
+              and load["checked"] == load["completed"] and not load["wrong"],
+              f"phase 6 serving: lost or wrong requests: {load}")
+        check(load["share_err"] <= SERVE_SHARE_ERR,
+              f"phase 6 serving: weighted shares off by >15%: {load}")
+        check(load["steady_reuse"] >= SERVE_REUSE,
+              f"phase 6 serving: steady-state pool reuse < 90%: {load}")
+        check(load["p99_ms"] <= SERVE_P99_MS,
+              f"phase 6 serving: p99 above {SERVE_P99_MS} ms: {load}")
+        check(shed["rejected"] > 0 and shed["lost"] == 0
+              and shed["counted"] == shed["rejected"] and not shed["wrong"],
+              f"phase 6 serving: shedding did not shed or lost work: {shed}")
+        check(not prof["wrong"] and prof["lost"] == 0,
+              f"phase 6 serving (profiled): {prof}")
+        if prof["device_ms"] is None:
+            busy = "not measured (the profiler saw no device activity)"
+        else:
+            # the profiler slows the host, not the device: the device time
+            # a request takes under it, over the unprofiled run's wall time
+            per_req = prof["device_ms"] / prof["completed"]
+            busy = (f"{per_req * load['completed'] / load['wall_ms']:.4f} "
+                    f"({per_req * 1e3:.2f} us of device time a request, "
+                    f"torch.profiler over {prof['completed']} requests, "
+                    f"whose own wall time gives "
+                    f"{prof['device_ms'] / prof['wall_ms']:.4f})")
+        print(f"phase 6 (c): serving {load['launches']} launches from "
+              f"{SERVE_TENANTS} weighted tenants on cuda: p50 "
+              f"{load['p50_ms']} ms, p99 {load['p99_ms']} ms (to the "
+              f"device event after each request's last segment), "
+              f"{load['completed'] / load['wall_ms'] * 1e3:.1f} requests/s, "
+              f"shares within {load['share_err']:.4f}, steady pool reuse "
+              f"{load['steady_reuse']:.4f}; oversubscribed: "
+              f"{shed['admitted']} admitted, {shed['rejected']} shed, "
+              f"{shed['lost']} lost; every output bit-equal to interp; "
+              f"device busy share {busy}; on {smi}")
+
+        # (d) a cuda/cuda/interp fleet: a kill -9 mid-kernel, a drain
+        oracles = fleet_oracles()
+        plan = [{"point": "mid-kernel", "worker": 0, "nth": 1,
+                 "after_segments": 2}]
+        with FleetCoordinator(backends=("cuda", "cuda", "interp"),
+                              queue_dir=tmp / "queue", fault_plan=plan,
+                              fault_seed=42, slice_segments=1) as fleet:
+            tickets = []
+            for name in FLEET_KERNELS:
+                prog, _, grid, block, args, _ = ks.example_launch(
+                    name, rng=np.random.default_rng(42))
+                fleet.register(prog)
+                tickets += [(name, fleet.submit(name, grid, block, args))
+                            for _ in range(FLEET_COPIES)]
+            deadline = time.perf_counter() + 300
+            while fleet.counters["workers_lost"] == 0:
+                check(time.perf_counter() < deadline and fleet.pump(),
+                      "phase 6 fleet: the mid-kernel kill never fired")
+            fleet.pump()        # the killed worker's launches redispatch
+            w1 = fleet.workers[1]
+            check(w1.alive and w1.launches,
+                  "phase 6 fleet: the second cuda worker holds no launch")
+            _, w1_stats = fleet._rpc(w1, "stats", {})
+            moved = fleet.drain(1)
+            fleet.wait_all(timeout=300)
+            st = fleet.fleet_stats()
+        for name, t in tickets:
+            check(all(same_bits(t.result(o), want)
+                      for o, want in oracles[name].items()),
+                  f"phase 6 fleet: {name} != interp")
+        n = len(tickets)
+        check(st["workers_lost"] == 1 and st["duplicate_acks"] == 0
+              and st["completed"] == n and st["queue"]["acked"] == n
+              and st["queue"]["total"] == n and st["evacuated"] >= 1
+              and moved >= 1 and st["migrated"] == moved,
+              f"phase 6 fleet: counters {st}")
+        check(all(m["src"] == 1 and m["dst"] == 2
+                  for m in fleet.migrations),
+              f"phase 6 fleet: a drain landed elsewhere: {fleet.migrations}")
+        launches["fleet_worker1"] = w1_stats["kernel_launches"]
+        check(w1_stats["kernel_launches"].get("scalar", 0) > 0,
+              f"phase 6 fleet: the cuda worker launched no kernel: "
+              f"{w1_stats}")
+        ms = {k: sum(m[k] for m in fleet.migrations) / len(fleet.migrations)
+              for k in ("checkpoint_ms", "transfer_ms", "restore_ms",
+                        "payload_bytes")}
+        print(f"phase 6 (d): fleet cuda/cuda/interp, {n} launches: worker "
+              f"0 killed mid-kernel, {st['evacuated']} replayed; worker 1 "
+              f"drained to the interp worker, {moved} moved live "
+              f"(mean checkpoint {ms['checkpoint_ms']:.3f} ms, transfer "
+              f"{ms['transfer_ms']:.3f} ms, restore {ms['restore_ms']:.3f} "
+              f"ms, {ms['payload_bytes']:.0f} B); all bit-equal to interp, "
+              f"0 lost, {st['duplicate_acks']} double-acked; counters "
+              f"{ {k: st[k] for k in ('submitted', 'completed', 'retried', 'evacuated', 'migrated', 'workers_lost', 'workers_spawned', 'duplicate_acks')} } "
+              f"recovery max {st.get('recovery_ms_max', 0.0):.1f} ms; on "
+              f"{smi}")
+    for part, counts in launches.items():
+        check(counts.get("scalar", 0) > 0,
+              f"phase 6 {part}: no scalar segment kernel launched: {counts}")
+    check(launches["warm"]["block"] > 0 and launches["fabric"]["block"] > 0,
+          f"phase 6: no block segment kernel launched: {launches}")
+    print(f"# phase 6 segment-kernel launches: {launches}")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "core").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -898,7 +1421,7 @@ def main() -> int:
     check(same_bits(vout["C"], vadd_want),
           "vadd 2^24: kernel != oracle bits")
     # the block kernel moves the buffers' words and no register array
-    (vmod,) = vgpu.backend._modules.values()
+    vmod = vgpu.backend._module(vrec.engine.program)
     (vsl,) = [k.slots for k in vmod.kernels.values() if k.has_block]
     check(not vsl.inputs and not vsl.outputs,
           f"vadd block kernel has register slots: in {vsl.inputs}, out "
@@ -1116,6 +1639,11 @@ def main() -> int:
              "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": lib_ms, "library_device_ms": lib_dev_ms})
+    # -- phase 6: the persistent tiers, serving and the fleet on the card -------
+    p6 = phase6(dev, smi)
+    for k, mode in ((kernels[0], "scalar"), (kernels[1], "block")):
+        k["phase6_launches"] = {part: c.get(mode, 0)
+                                for part, c in p6.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1126,6 +1654,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--phase6-child"]:
+            sys.exit(phase6_child(*sys.argv[2:5]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)

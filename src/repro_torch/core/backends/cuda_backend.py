@@ -66,6 +66,10 @@ tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import AbstractSet, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -73,7 +77,7 @@ import torch
 
 from .. import hetir as ir
 from ..alias import affine_env, index_form
-from ..cache import TranslationCache
+from ..cache import TranslationCache, note_restore_detail, register_reviver
 from ..passes import (_THREAD_BASES, _decompose, _uniform_regs, block_lower,
                       choose_block, refusal_category)
 from ..liveness import live_out, segment_inputs, segment_outputs
@@ -839,12 +843,26 @@ class HetArgs(ctypes.Structure):
                 ("block_size", ctypes.c_int)]
 
 
+#: one ``ctypes`` handle per library path in the process: two sessions
+#: that build or revive the same module share it
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS_LOCK = threading.Lock()
+
+
+def _load_library(path) -> ctypes.CDLL:
+    with _LIBS_LOCK:
+        lib = _LIBS.get(str(path))
+        if lib is None:
+            lib = _LIBS[str(path)] = ctypes.CDLL(str(path))
+        return lib
+
+
 class _Module:
     """A loaded library of one optimized program's segment kernels."""
 
     def __init__(self, path, kernels: Dict[int, SegmentKernels]):
         self.path = path
-        self.lib = ctypes.CDLL(str(path))
+        self.lib = _load_library(path)
         self.kernels = kernels
         self.fns = {}
         for k in kernels.values():
@@ -854,6 +872,20 @@ class _Module:
                                ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
                 self.fns[(k.index, mode)] = fn
+
+
+def _revive_module(payload) -> _Module:
+    """Reviver of a persisted ``"cuda-module"``: write the library back
+    under its content-addressed name when it is missing (temp file, then
+    ``os.replace``: a library this process already loaded is never
+    overwritten) and load it.  No ``nvcc`` runs."""
+    path, written = nvcc_build.install_library(payload["name"],
+                                               payload["library"])
+    note_restore_detail(library_written=written)
+    return _Module(path, payload["kernels"])
+
+
+register_reviver("cuda-module", _revive_module)
 
 
 def _scalar_bits(value, dtype: str) -> int:
@@ -881,32 +913,60 @@ class CudaBackend(Backend):
         # of the scalar launches: those that staged a window in shared
         # memory, and those that ran a shuffle-tree REDUCE_MAX
         self.scalar_paths = {"staged": 0, "tree_fold": 0}
-        self._modules: Dict[str, _Module] = {}
+        # nvcc runs this backend's module builds made: libraries built and
+        # the wall time of the build calls that built them
+        self.nvcc = {"built": 0, "seconds": 0.0}
+        self._nvcc_lock = threading.Lock()
 
     # -- translation -----------------------------------------------------------
-    def prebuild(self, programs: Sequence[ir.Program],
-                 lanes: int = 1) -> Dict[str, object]:
-        """Translate and build the segment kernels of several optimized
-        programs at once (one ``nvcc`` process per program, run
-        concurrently), their scalar kernels at ``lanes`` hetIR lanes a
-        thread, and load them."""
-        todo = []
-        for prog in programs:
-            key = (ir.program_fingerprint(prog), lanes)
-            if key not in self._modules and key not in {k for k, _, _ in todo}:
-                src, kernels = emit_module(prog, lanes)
-                todo.append((key, src, kernels))
-        res = nvcc_build.build([nvcc_build.segment_job(src)
-                                 for _, src, _ in todo])
-        for (key, _, kernels), path in zip(todo, res["paths"]):
-            self._modules[key] = _Module(path, kernels)
-        return res
+    def _module_key(self, prog: ir.Program, lanes: int) -> Tuple:
+        """Cache key of one optimized program's library at ``lanes`` hetIR
+        lanes a thread; ``codegen_tag`` names the translator, the device
+        runtime header and the flags the emitted source depends on."""
+        return ("cuda", ir.program_fingerprint(prog), "module", lanes,
+                nvcc_build.codegen_tag())
 
     def _module(self, prog: ir.Program, lanes: int = 1) -> _Module:
-        key = (ir.program_fingerprint(prog), lanes)
-        if key not in self._modules:
-            self.prebuild([prog], lanes)
-        return self._modules[key]
+        """The loaded library of ``prog``'s segment kernels, through the
+        translation cache: memory, then the local store and the fabric (a
+        revived library runs no ``nvcc``), else emit and build it."""
+        return self.cache.get_or_translate(self._module_key(prog, lanes),
+                                           lambda: self._build(prog, lanes))
+
+    def _build(self, prog: ir.Program, lanes: int):
+        src, kernels = emit_module(prog, lanes)
+        res = nvcc_build.build([nvcc_build.segment_job(src)])
+        if res["built"]:
+            with self._nvcc_lock:
+                self.nvcc["built"] += res["built"]
+                self.nvcc["seconds"] += res["seconds"]
+        (path,) = res["paths"]
+        payload = {"name": path.name, "library": path.read_bytes(),
+                   "kernels": kernels}
+        return _Module(path, kernels), ("cuda-module", payload)
+
+    def prebuild(self, programs: Sequence[ir.Program],
+                 lanes: int = 1) -> Dict[str, object]:
+        """Translate, build and load the segment kernels of several
+        optimized programs at once (their scalar kernels at ``lanes`` hetIR
+        lanes a thread): one thread per CPU core, each taking a program
+        through :meth:`_module`, so the ``nvcc`` runs overlap and every
+        module goes through the cache and its stores.  Returns the
+        ``nvcc`` builds this made and the wall time."""
+        t0 = time.perf_counter()
+        before = self.nvcc["built"]
+        todo = {self._module_key(p, lanes): p for p in programs}
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+            for f in [pool.submit(self._module, p, lanes)
+                      for p in todo.values()]:
+                f.result()
+        return {"modules": len(todo), "built": self.nvcc["built"] - before,
+                "seconds": time.perf_counter() - t0}
+
+    def modules(self) -> List[_Module]:
+        """The segment libraries the cache holds."""
+        return [v for k, v in self.cache.items()
+                if k[:1] == ("cuda",) and k[2:3] == ("module",)]
 
     def _verdict(self, seg: SegNode, launch: Launch,
                  glb_lens: Tuple) -> Tuple[Optional[int], Optional[str]]:
@@ -924,7 +984,7 @@ class CudaBackend(Backend):
             return (plan.block, None) if plan is not None else (None, reason)
 
         key = self._cache_key(seg, launch, B, T, glb_lens)
-        return self.cache.get_or_translate(key, decide)
+        return self.cache.get_or_translate(key, lambda: (decide(), None))
 
     # -- execution -------------------------------------------------------------
     def run_segment(self, seg: SegNode, state: HostState,

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import hetir as ir
+from ..cache import register_reviver
 from ..segments import SegNode
 from .base import Backend, HostState, Launch, to_numpy
 from .portable_math import exp_np
@@ -39,10 +40,17 @@ class InterpBackend(Backend):
         structure on every block of every launch.  Geometry-independent, so
         the key is just (backend, fingerprint, opt level, segment, spec
         key) — a *specialized* launch stages its own plan (the bound body
-        differs), while every generic launch of the program shares one."""
+        differs), while every generic launch of the program shares one.
+        The staged plan is plain picklable objects over IR dataclasses, so
+        it persists to the disk tier verbatim — a warm process unpickles
+        the plan and skips staging entirely."""
         key = self._cache_key(seg, launch)
-        return self.cache.get_or_translate(
-            key, lambda: _compile_stmts(seg.stmts))
+
+        def translate():
+            plan = _compile_stmts(seg.stmts)
+            return plan, ("interp-plan", plan)
+
+        return self.cache.get_or_translate(key, translate)
 
     def run_segment(self, seg: SegNode, state: HostState,
                     launch: Launch) -> None:
@@ -177,6 +185,10 @@ def _compile_stmts(stmts: Sequence[ir.Stmt]) -> _Plan:
         elif isinstance(s, ir.Barrier):
             raise AssertionError("barrier inside segment")
     return _Plan(steps)
+
+
+# a persisted interp plan is the live value itself
+register_reviver("interp-plan", lambda payload: payload)
 
 
 def _exec_stmts(stmts: Sequence[ir.Stmt], ctx: _BlockCtx,

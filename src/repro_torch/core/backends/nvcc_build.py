@@ -12,13 +12,23 @@ Two kinds of source build here, each a job of :func:`build`:
 
 Every library lands in ``build/repro_torch/`` at the root of the checkout,
 named by a hash of its source, the headers of ``csrc/`` it includes, the
-compiler flags and the runtime tag — so a second process (or a second
-launch of the same program) finds the library and skips ``nvcc``.  One
-:func:`build` call runs one ``nvcc`` per missing library, as many at once
-as there are CPU cores.
+compiler flags and the runtime tag — so a second process on the same
+checkout (or a second launch of the same program) finds the library and
+skips ``nvcc``.  One :func:`build` call runs one ``nvcc`` per missing
+library, as many at once as there are CPU cores.
+
+The hashed directory serves one checkout.  The translation cache's stores
+(:mod:`~repro_torch.core.cache`) carry a segment library further: the CUDA
+backend persists each one as a ``"cuda-module"`` entry (its bytes, its
+hashed name and its launch metadata), so another node, a fleet worker or a
+migration destination with an empty ``build/`` revives it —
+:func:`install_library` writes it back under the same name — and runs no
+``nvcc``; the cache counts those restores, and fleet-wide single-flight
+makes one ``nvcc`` per module across the processes sharing a fabric.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import re
@@ -175,3 +185,57 @@ def build(jobs_in: Sequence[tuple]) -> Dict[str, object]:
     return {"paths": paths, "built": len(todo),
             "seconds": time.perf_counter() - t0, "logs": logs}
 
+
+def codegen_sources() -> List[Path]:
+    """What a generated segment library depends on besides its program and
+    lane count: every module of :mod:`repro_torch.core` (the emitter and
+    all it calls — passes, alias forms, liveness, staging, segmentation,
+    the op semantics; ``core`` imports nothing outside itself) and the
+    device runtime header."""
+    core = Path(__file__).resolve().parents[1]
+    return sorted(core.rglob("*.py")) + [CSRC / "hetir_rt.cuh"]
+
+
+def digest_sources(paths: Sequence[Path], root: Path) -> str:
+    """Hash of the flags and of ``paths`` (their names under ``root`` and
+    their bytes)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in paths:
+        h.update(b"\0" + str(path.relative_to(root)).encode() + b"\0")
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def codegen_tag() -> str:
+    """Hash of :func:`codegen_sources` and the flags — part of every
+    persisted module's cache key, so a store written by another version of
+    the translator is a miss and never revives a library (or launch
+    metadata) that this one would not emit."""
+    return digest_sources(codegen_sources(), CSRC.parent)
+
+
+def install_library(name: str, data: bytes) -> Tuple[Path, bool]:
+    """Put a library revived from a store into :data:`BUILD_DIR` under its
+    content-addressed ``name``, unless a file of that name is there
+    already: written to a temp file and published by ``os.replace``, so a
+    library a process has loaded is never rewritten in place.  Returns the
+    path and whether it was written."""
+    if Path(name).name != name or not name.endswith(".so"):
+        raise ValueError(f"not a library file name: {name!r}")
+    path = BUILD_DIR / name
+    if path.exists():
+        return path, False
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=str(BUILD_DIR), suffix=".so.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    return path, True

@@ -30,6 +30,6 @@ class VectorizedBackend(Backend):
         # nothing is translated, but the segment's block-order verdict is
         # computed once per segment and cached like a translation
         serial = self.cache.get_or_translate(
-            self._cache_key(seg, launch), lambda: serial_segment(seg))
+            self._cache_key(seg, launch), lambda: (serial_segment(seg), None))
         run_segment_plain(seg.stmts, state, launch, serial, self.device,
                           segment_outputs(seg, live_out(launch.program, seg)))

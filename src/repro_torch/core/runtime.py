@@ -46,13 +46,15 @@ The "JIT modules" are entries in the shared :class:`~repro_torch.core.
 cache.TranslationCache` (paper §4.2), surfaced via :meth:`HetSession.
 cache_stats` and ``stats`` (``translate_ms`` from cache counters,
 ``launch_ms`` for end-to-end launch work), plus :meth:`HetSession.warmup`
-ahead-of-time translation.
+ahead-of-time translation.  ``HetSession(store=..., shared=...)`` puts the
+cache on the persistent tiers (a local :class:`~repro_torch.core.cache.
+DiskStore` and the cluster fabric), so translations — on ``cuda`` the
+``nvcc``-built segment libraries — outlive the process.
 
 A session lives on one ``torch.device``: ``cuda:0`` unless the caller asks
 for ``device="cpu"`` (it raises when there is no GPU and no device was
 given).  Device buffers are tensors on that device, and launch state stays
 there between segments.  Not ported yet (ROADMAP.md, Queue A): the
-persistent translation tiers (``store=``/``shared=`` raise) and the
 deprecated string-keyed shim (``load_kernel``/``gpu_malloc``/``memcpy_*``/
 ``launch``/``device_synchronize``).
 """
@@ -74,7 +76,7 @@ from . import hetir as ir
 from .backends import get_backend
 from .backends.base import (TORCH_DTYPES, Backend, resolve_device, to_numpy,
                             torch_dtype)
-from .cache import TranslationCache
+from .cache import DiskStore, SharedStore, TranslationCache
 from .engine import Engine
 from .passes import DEFAULT_OPT_LEVEL, OPT_MAX
 from .pool import BufferPool
@@ -589,6 +591,10 @@ class LaunchRecord:
         self._engine = engine
         self.finished = bool(engine is not None and engine.finished)
         self.cancelled = False
+        #: on a CUDA session, an event recorded on the device stream right
+        #: after the launch's last segment and its writeback (set when the
+        #: host finishes the launch): the device is done once it completes
+        self.done_event: Optional[torch.cuda.Event] = None
         if engine is not None:
             engine.launch.stream_id = stream.sid
             engine.launch.launch_seq = self.seq
@@ -731,6 +737,10 @@ class LaunchRecord:
             if db.freed:
                 continue
             db.data.copy_(self._engine.state.globals_[name])
+        dev = self.session.device
+        if dev.type == "cuda":
+            self.done_event = torch.cuda.Event(enable_timing=True)
+            self.done_event.record(torch.cuda.current_stream(dev))
 
     def __repr__(self) -> str:
         state = ("finished" if self.finished else
@@ -906,16 +916,13 @@ class HetSession:
     def __init__(self, backend: str = "cuda",
                  opt_level: Optional[int] = None,
                  cache: Optional[TranslationCache] = None,
-                 store=None, shared=None,
+                 store: Optional[Union[str, DiskStore]] = None,
+                 shared: Optional[Union[str, SharedStore]] = None,
                  specialize: Optional[bool] = None,
                  pool: Optional[Union[BufferPool, bool]] = None,
                  trace_cap: Optional[int] = None,
                  starvation_guard: Optional[int] = None,
                  device=None):
-        if store is not None or shared is not None:
-            raise NotImplementedError(
-                "persistent translation tiers (store=/shared=) are not "
-                "ported yet: ROADMAP.md, Queue A, DiskStore/SharedStore")
         self.device = resolve_device(device)
         # specialize: None = policy default (HETGPU_SPECIALIZE / auto),
         # True = force launch-time specialization, False = always generic
@@ -938,6 +945,32 @@ class HetSession:
                 "HETGPU_STARVATION_GUARD", "32"))
         self.starvation_guard = max(0, int(starvation_guard))
         self.backend_name = backend
+        if store is not None and not isinstance(store, DiskStore):
+            store = DiskStore(store)
+        if shared is not None and not isinstance(shared, SharedStore):
+            shared = SharedStore(shared)
+        if cache is None and (store is not None or shared is not None):
+            # a session opened "against a store": private memory tier,
+            # persistent disk tier — translations survive this process —
+            # and optionally the cluster fabric underneath
+            cache = TranslationCache(store=store, shared=shared)
+        elif cache is not None:
+            if store is not None:
+                if cache.store is None:
+                    cache.store = store
+                elif cache.store.dir.resolve() != store.dir.resolve():
+                    raise ValueError(
+                        "cache is already bound to a different store "
+                        f"({cache.store.dir}); refusing to silently ignore "
+                        f"store={store.dir}")
+            if shared is not None:
+                if cache.shared is None:
+                    cache.shared = shared
+                elif cache.shared.dir.resolve() != shared.dir.resolve():
+                    raise ValueError(
+                        "cache is already bound to a different shared tier "
+                        f"({cache.shared.dir}); refusing to silently ignore "
+                        f"shared={shared.dir}")
         self.backend: Backend = get_backend(backend, cache=cache,
                                             device=self.device)
         self.cache: TranslationCache = self.backend.cache
@@ -972,7 +1005,8 @@ class HetSession:
                       "async_copies": 0, "sched_trace_dropped": 0,
                       "streams_retired": 0,
                       "cache_hits": 0, "cache_misses": 0,
-                      "cache_evictions": 0, "cache_translated": 0}
+                      "cache_evictions": 0, "cache_restored": 0,
+                      "cache_translated": 0}
         # translate_ms is reported as this session's *delta* over the
         # (possibly shared) cache's lifetime counter
         self._translate_ms_base = float(
@@ -999,6 +1033,7 @@ class HetSession:
         self.stats["cache_hits"] = st["hits"]
         self.stats["cache_misses"] = st["misses"]
         self.stats["cache_evictions"] = st["evictions"]
+        self.stats["cache_restored"] = st["restored"]
         self.stats["cache_translated"] = st["translated"]
         self.stats["translate_ms"] = (
             float(st.get("translate_ms", 0.0)) - self._translate_ms_base)
@@ -1272,12 +1307,17 @@ class HetSession:
         scratch copies; session buffers are untouched.
 
         Returns a report: per-kernel status plus how many translations
-        were made fresh (``translated``) and how many lookups hit the
-        in-memory cache (``cache_hits``).  The persistent tiers are not
-        ported yet, so warm-up lasts as long as the process.
+        were ``restored`` from the disk store versus freshly
+        ``translated`` (warm restarts of ``interp`` see ``translated ==
+        0``; on ``cuda`` only the block-path verdicts, which cost
+        microseconds and stay in memory, are made again, and every segment
+        library is restored), how many restores were ``fetched`` from the
+        shared tier, and how many lookups hit the in-memory cache
+        (``cache_hits``).
         """
         report: Dict[str, object] = {"kernels": [], "translated": 0,
-                                     "cache_hits": 0, "errors": 0}
+                                     "restored": 0, "cache_hits": 0,
+                                     "fetched": 0, "errors": 0}
         for item in programs:
             prog, args = item if isinstance(item, tuple) else (item, None)
             for grid, block in grids:
@@ -1304,9 +1344,12 @@ class HetSession:
                     entry["status"] = f"error: {type(exc).__name__}: {exc}"
                     report["errors"] += 1
                 after = self.cache.stats()
-                entry["translated"] = after["translated"] \
-                    - before["translated"]
-                report["translated"] += entry["translated"]
+                for field_ in ("translated", "restored"):
+                    entry[field_] = after[field_] - before[field_]
+                    report[field_] += entry[field_]
+                entry["fetched"] = (after["shared_fetches"]
+                                    - before["shared_fetches"])
+                report["fetched"] += entry["fetched"]
                 entry["cache_hits"] = after["hits"] - before["hits"]
                 report["cache_hits"] += entry["cache_hits"]
                 entry["ms"] = round((time.perf_counter() - t0) * 1e3, 2)
@@ -1405,18 +1448,40 @@ def migrate(rec: LaunchRecord, src: HetSession, dst: HetSession,
     bit-identical.  DeviceBuffer uids ride along too: the destination's
     restored buffers adopt them, keeping buffer identity stable across
     chained hops.  The snapshot is host numpy, so the two sessions may
-    live on different devices."""
+    live on different devices.
+
+    Before resuming, the destination's translation cache is preloaded from
+    its own tiers (local store, then shared fabric), or else from the
+    source's fabric, then the source's local store: if this program was
+    ever translated for the destination backend within the fabric's
+    lifetime, the migrated launch pays no translation — on ``cuda``, no
+    ``nvcc``.  The preload is keyed on the *optimized* program's
+    fingerprint, which is what every cache key carries."""
     t0 = time.perf_counter()
     blob = src.checkpoint(rec)  # capture at barrier
     rec.cancel()
     t1 = time.perf_counter()
-    new = dst.restore(kernel, blob, stream=stream)  # reload + reshard
+    fp = ir.program_fingerprint(rec.engine.program)
+    restored = 0
+    if dst.cache.store is not None or dst.cache.shared is not None:
+        restored = dst.cache.preload(backend=dst.backend_name,
+                                     fingerprint=fp)
+    else:
+        store = src.cache.shared if src.cache.shared is not None \
+            else src.cache.store
+        if store is not None:
+            restored = dst.cache.preload(backend=dst.backend_name,
+                                         fingerprint=fp, store=store)
     t2 = time.perf_counter()
+    new = dst.restore(kernel, blob, stream=stream)  # reload + reshard
+    t3 = time.perf_counter()
     src.stats["migrations"] += 1
     dst.stats["migrations"] += 1
     dst.stats["last_migration"] = {
         "checkpoint_ms": (t1 - t0) * 1e3,
-        "restore_ms": (t2 - t1) * 1e3,
+        "warmup_ms": (t2 - t1) * 1e3,
+        "restore_ms": (t3 - t2) * 1e3,
         "payload_bytes": len(blob),
+        "cache_restored": restored,
     }
     return new

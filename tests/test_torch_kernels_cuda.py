@@ -12,9 +12,11 @@ wgmma/TMA where TMA can load the rows, the CUDA-core kernel otherwise
 ran.  The domain the reference takes: bf16 flash attention that TMA
 cannot load and heads wider than 256 (each on its build's launch count),
 mLSTM chunks of 16 to 256 steps and keys of 8 to 704, float16 and
-non-contiguous inputs to every op; and hetIR blocks of 1536 and 2048
+non-contiguous inputs to every op; hetIR blocks of 1536 and 2048
 lanes, several to a thread of the scalar segment kernels, bit-equal to
-the interpreter.
+the interpreter; and the runtime over the segment kernels: a session on
+a fresh store that restores every module with no ``nvcc``, and a
+two-worker ``cuda`` fleet that survives a ``kill -9`` mid-kernel.
 
 Marked ``gpu``: without a CUDA device every test skips.  On a machine with
 one (no jax needed), from the checkout root:
@@ -541,3 +543,111 @@ def test_hetir_blocks_wider_than_1024_lanes_bit_equal_to_interp(dev, case,
     for o in outs:
         np.testing.assert_array_equal(_bits(got[o]), _bits(want[o]),
                                       err_msg=f"{case} T={T} {o}")
+
+
+# ---------------------------------------------------------------------------
+# the runtime's persistent tiers and fleet over the segment kernels
+# ---------------------------------------------------------------------------
+
+def _example(name):
+    import repro_torch.zoo  # noqa: F401  (registers the zoo programs)
+    from repro_torch.core import kernels_suite as ks
+    return ks.example_launch(name, rng=np.random.default_rng(42))
+
+
+def _interp_outputs(name):
+    prog, _, grid, block, args, outs = _example(name)
+    s = HetSession("interp", device="cpu", cache=TranslationCache())
+    return _run(s, prog, grid, block, args, outs)
+
+
+def _run(s, prog, grid, block, args, outs):
+    fn = s.load(prog).function()
+    bound = {p.name: (s.alloc(np.asarray(args[p.name]).size,
+                              np.asarray(args[p.name]).dtype)
+                      .copy_from_host(args[p.name])
+                      if p.kind == "buffer" else args[p.name])
+             for p in fn.params}
+    rec = fn.launch_async(grid, block, bound)
+    assert rec.wait()
+    return {o: rec.buffer(o).copy_to_host() for o in outs}
+
+
+def _bits(a):
+    a = np.asarray(a)
+    if a.dtype == np.float32:
+        a = np.where(np.isnan(a), np.float32(np.nan), a).view(np.uint32)
+    return a
+
+
+def test_store_restores_every_module_without_nvcc(dev, tmp_path):
+    """A cuda session on a fresh store builds each program's segment
+    library; a fresh cache on the same store, the libraries removed from
+    the build directory, restores every module — no nvcc — writes the
+    libraries back and runs bit-equal to the interpreter."""
+    from repro_torch.core import Engine
+    from repro_torch.core.backends import nvcc_build
+    from repro_torch.core.backends.cuda_backend import emit_module
+    names = ("vadd", "reduction", "dyn_matmul", "attn_decode")
+
+    def session():
+        return HetSession("cuda", device=dev, opt_level=0,
+                          store=str(tmp_path / "store"))
+
+    def programs(s):
+        out = []
+        for name in names:
+            prog, _, grid, block, args, _ = _example(name)
+            out.append(Engine(prog, s.backend, grid, block, args,
+                              opt_level=0).program)
+        return out
+
+    def remove(progs):
+        for p in progs:
+            nvcc_build.library_path(emit_module(p)[0]).unlink(missing_ok=True)
+
+    s1 = session()
+    progs = programs(s1)
+    remove(progs)
+    rep = s1.backend.prebuild(progs)
+    assert rep["built"] == rep["modules"] == len(progs)
+    remove(progs)
+    s2 = session()
+    rep = s2.backend.prebuild(programs(s2))
+    st = s2.cache_stats()
+    assert rep["built"] == 0 and s2.backend.nvcc["built"] == 0
+    assert (st["translated"], st["restored"], st["libraries_written"]) == \
+        (0, len(progs), len(progs))
+    for name in names:
+        prog, _, grid, block, args, outs = _example(name)
+        got = _run(s2, prog, grid, block, args, outs)
+        want = _interp_outputs(name)
+        for o in outs:
+            np.testing.assert_array_equal(_bits(got[o]), _bits(want[o]))
+    assert s2.backend.nvcc["built"] == 0
+    assert s2.backend.launches["scalar"] > 0
+
+
+def test_cuda_fleet_survives_a_mid_kernel_kill(dev, tmp_path):
+    """Two cuda workers; worker 0 is killed by SIGKILL two segments into
+    its launch, the launch replays on worker 1 and finishes bit-equal to
+    the interpreter, once."""
+    from repro_torch.core import FleetCoordinator
+    name = "dyn_matmul"
+    prog, _, grid, block, args, outs = _example(name)
+    plan = [{"point": "mid-kernel", "worker": 0, "kernel": name, "nth": 1,
+             "after_segments": 2}]
+    with FleetCoordinator(backends=("cuda", "cuda"),
+                          queue_dir=tmp_path / "q", fault_plan=plan,
+                          fault_seed=42) as fleet:
+        fleet.register(prog)
+        tickets = [fleet.submit(name, grid, block, args) for _ in range(2)]
+        fleet.wait_all(timeout=300)
+        st = fleet.fleet_stats()
+    want = _interp_outputs(name)
+    for t in tickets:
+        for o in outs:
+            np.testing.assert_array_equal(_bits(t.result(o)), _bits(want[o]))
+    assert st["workers_lost"] == 1 and st["duplicate_acks"] == 0
+    assert st["completed"] == 2 and st["queue"]["acked"] == 2
+    assert st["evacuated"] == 1 and tickets[0].worker == 1

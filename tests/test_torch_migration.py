@@ -106,14 +106,16 @@ def test_readme_driver_api_migration_between_port_sessions():
     assert rec.cancelled
 
 
-def test_session_defaults_to_the_card_and_refuses_without_one():
+def test_session_defaults_to_the_card_and_refuses_without_one(tmp_path):
     if torch.cuda.is_available():
         assert HetSession().device == torch.device("cuda", 0)
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             HetSession()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HetSession("interp", device="cpu", store="/nonexistent")
+    # the persistent tiers are ported: a session opens against them
+    s = HetSession("interp", device="cpu", store=str(tmp_path / "store"),
+                   shared=str(tmp_path / "fabric"))
+    assert s.cache.store is not None and s.cache.shared is not None
 
 
 @pytest.mark.parametrize("name", ["interp", "vectorized", "cuda"])
