@@ -103,7 +103,29 @@ card) and against the NumPy oracles:
    the fleet's worker) and printed; the kernels line carries them as
    ``phase6_launches``.
 
-Phase 4 runs after phase 5, phase 6 after phase 4.  Phase 4 also times
+7. the model stack's serving path at full width: granite-moe-3b-a800m
+   (32 layers of attention and a 40-expert MoE, 3,298,985,472 parameters
+   in bf16 drawn on the card from a seeded ``torch.Generator``) served by
+   ``repro_torch.launch.serve`` at batch 4, prompt 1024 and 32 steps:
+   (a) the prefill's and the decode's milliseconds, tokens/s, the launch
+   counts split at the end of the prefill (32 ``flash_attention_sm90``
+   and 96 ``moe_gmm_sm90`` launches, then three grouped matmuls a layer
+   and step, whose route the decode's one-row capacity takes), one
+   prefill and one decode step under ``torch.profiler`` (device busy
+   share, each kernel's device time and share), the host time of the
+   decode step's ``moe_gmm_sm90`` launch calls and the bounds of both;
+   (b) a second, identical run whose layers capture a seeded sample of 8
+   flash attention and 8 grouped matmul calls of the prefill and 8 of
+   the decode, each held against its plain version at phase 5's
+   tolerances, rows past the counts (empty experts) exact zeros; the
+   kernel, its plain version and the PyTorch call timed at the model's
+   shapes; (c) the same weights in f32: a prefill and a decode step on
+   the f32 kernels against the same run with the harness patching the
+   layers' two ops to their plain versions, logits within
+   ``F32_MODEL_TOL`` and the same greedy tokens, while the queries
+   rotated one position late and two experts swapped fall outside it.
+
+Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6.  Phase 4 also times
 the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
 versions, and the one PyTorch call that computes the same function where
@@ -122,7 +144,9 @@ for it), ``device_ms`` the device time of its kernels alone (from
 ``library_device_ms`` the same two for the PyTorch call.
 
 The launch counts of the kernels are reset before phases 2-3 and read after
-them, and reset before phase 5's main path and read after it.  Any
+them, reset before phase 5's main path and read after it, and reset before
+phase 7's serving run and read at the end of its prefill and after it
+(``model_path`` in the kernels line).  Any
 mismatch or launch error ends the run with a non-zero code.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -257,6 +281,20 @@ FLEET_KERNELS = ("dyn_matmul", "decode_gemv", "attn_decode")
 FLEET_COPIES = 3
 #: the three fresh processes of phase 6 (b) that share one fabric
 FABRIC_PROCS = 3
+#: phase 7: granite-moe-3b-a800m (src/repro_torch/configs/
+#: granite_moe_3b_a800m.py) at full width, served as the JAX launcher's
+#: --batch 4 at --prompt-len 1024 for 32 steps
+SERVE_ARCH, SERVE_B, SERVE_S, SERVE_STEPS = "granite-moe-3b-a800m", 4, 1024, 32
+#: kernel calls of each kind that phase 7 (b) holds against their plain
+#: versions: a seeded sample of the prefill's flash attention and grouped
+#: matmul calls and of the decode's grouped matmul calls
+CAPTURE_SAMPLE = 8
+#: phase 7 (c), f32 logits (atol, rtol) of the model on the f32 kernels
+#: against the same model on the plain versions: f32 sums in another order
+#: through 32 layers (about 1e-5 of a logit near 4), and the rare MoE
+#: routing that flips at a near-tied router logit, which reaches the last
+#: position through attention at about 1/S of its weight
+F32_MODEL_TOL = (1e-3, 1e-3)
 
 
 class SmokeFailure(Exception):
@@ -1244,6 +1282,453 @@ def phase6(dev, smi: str) -> dict:
     return launches
 
 
+def _patched(obj, **attrs):
+    """Context manager: ``obj``'s attributes set to ``attrs``, restored on
+    exit (the harness's own patches of the layers' ops and of a model's
+    method)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def cm():
+        own = vars(obj)
+        old = {k: own[k] for k in attrs if k in own}
+        for k, v in attrs.items():
+            setattr(obj, k, v)
+        try:
+            yield
+        finally:
+            for k in attrs:
+                if k in old:
+                    setattr(obj, k, old[k])
+                else:
+                    delattr(obj, k)
+    return cm()
+
+
+def _by_kernel(by_name: dict) -> dict:
+    """Device ms of a profile, summed into the flash attention kernels,
+    the grouped-matmul kernels and the rest."""
+    out = {"flash_attention": 0.0, "moe_gmm": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        key = "flash_attention" if "flash_fwd" in name else \
+            "moe_gmm" if "moe_gmm" in name else "other"
+        out[key] += ms
+    return out
+
+
+def _print_others(what: str, by_name: dict, n: int = 8) -> None:
+    """The ``n`` largest device times of a profile outside the two
+    model-path kernels."""
+    rest = sorted(((ms, name) for name, ms in by_name.items()
+                   if "flash_fwd" not in name and "moe_gmm" not in name),
+                  reverse=True)
+    for ms, name in rest[:n]:
+        print(f"#   {what}: {ms:.4f} ms  {name[:100]}")
+
+
+def _gmm_rows(counts, C: int, bc: int = 128) -> int:
+    """Rows the grouped matmul computes: every row of a ``bc``-row tile
+    that holds a live row."""
+    import torch
+    return int(torch.clamp(torch.ceil(counts.double() / bc) * bc,
+                           max=C).sum())
+
+
+def phase7(dev, smi: str) -> dict:
+    """Phase 7: the model stack's serving path at granite-moe-3b-a800m's
+    full width, through ``repro_torch.launch.serve``, with flash attention
+    and the grouped matmul on it.  Returns what the kernels line carries
+    for the four model-path kernels, by kernel name."""
+    import dataclasses
+    import random
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.kernels import _cuda as kernel_lib
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    from repro_torch.kernels.moe_gmm.kernel import (moe_gmm_fwd,
+                                                    moe_gmm_plain)
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.models import layers
+
+    counters = {"flash_attention": (flash_attention_fwd, "launches"),
+                "flash_attention_sm90": (flash_attention_fwd,
+                                         "sm90_launches"),
+                "flash_attention_bf16": (flash_attention_fwd,
+                                         "simt_bf16_launches"),
+                "moe_gmm": (moe_gmm_fwd, "launches"),
+                "moe_gmm_sm90": (moe_gmm_fwd, "sm90_launches")}
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+
+    cfg = configs.get_config(SERVE_ARCH)
+    B, S, steps = SERVE_B, SERVE_S, SERVE_STEPS
+    E, Fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+    C = int(math.ceil(B * S * cfg.moe.top_k / E * cfg.moe.capacity_factor))
+    op_flash, op_gmm = layers.flash_attention, layers.moe_gmm
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                  device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"# phase 7: {cfg.name} at full width, {n_params} parameters in "
+          f"{model.embed.dtype} on the card, drawn in "
+          f"{time.perf_counter() - t0:.2f} s on {smi}")
+    # warm-up at the main path's shapes: libraries loaded, allocator filled
+    serve.serve(cfg, batch=B, prompt_len=S, steps=2, model=model, seed=1)
+    torch.cuda.synchronize()
+
+    # -- (a) serving: counts split at the end of the prefill ----------------
+    prefill = model.prefill
+    after_prefill = {}
+
+    def prefill_and_count(*a, **kw):
+        out = prefill(*a, **kw)
+        torch.cuda.synchronize()
+        after_prefill.update(read())
+        return out
+
+    reset()
+    with _patched(model, prefill=prefill_and_count):
+        run = serve.serve(cfg, batch=B, prompt_len=S, steps=steps,
+                          model=model, seed=0)
+    torch.cuda.synchronize()
+    total = read()
+    decode_counts = {n: total[n] - after_prefill[n] for n in total}
+    tokens = run["tokens"]
+    check(tuple(tokens.shape) == (B, steps)
+          and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.padded_vocab,
+          f"phase 7: generated tokens {tuple(tokens.shape)} out of range")
+    check(after_prefill["flash_attention_sm90"] == cfg.n_layers
+          and after_prefill["moe_gmm_sm90"] == 3 * cfg.n_layers
+          and sum(after_prefill.values()) == 4 * cfg.n_layers,
+          f"phase 7 prefill: expected {cfg.n_layers} flash_attention_sm90 "
+          f"and {3 * cfg.n_layers} moe_gmm_sm90 launches and no other, got "
+          f"{after_prefill}")
+    check(sum(decode_counts.values()) == 3 * cfg.n_layers * (steps - 1)
+          and decode_counts["moe_gmm_sm90"] + decode_counts["moe_gmm"]
+          == 3 * cfg.n_layers * (steps - 1),
+          f"phase 7 decode: expected {3 * cfg.n_layers * (steps - 1)} "
+          f"grouped-matmul launches and no flash attention, got "
+          f"{decode_counts}")
+    decode_route = [n for n in ("moe_gmm_sm90", "moe_gmm")
+                    if decode_counts[n]]
+    print(f"phase 7 (a): served {B} prompts of {S} tokens, {steps} tokens "
+          f"each: prefill {run['prefill_ms']:.3f} ms, decode "
+          f"{run['decode_ms_per_step']:.3f} ms a step, "
+          f"{run['tokens_per_s']:.1f} tokens/s on {smi}")
+    print(f"# phase 7 launches: prefill {after_prefill}; {steps - 1} decode "
+          f"steps {decode_counts} (the decode's C = 1 rows take "
+          f"{'/'.join(decode_route)})")
+
+    # device time and busy share: one prefill and one decode step profiled
+    caches = run["caches"]
+    batch = run["batch"]
+    tok = tokens[:, -1:].to(dev)
+
+    def go_prefill():
+        return model.prefill(batch, cache_len=S + steps)
+
+    def go_decode():
+        return model.decode_step(tok, caches, S + steps - 1)
+
+    raw_prefill, raw_decode = profile_launch(go_prefill), \
+        profile_launch(go_decode)
+    prof_prefill, prof_decode = _by_kernel(raw_prefill), \
+        _by_kernel(raw_decode)
+    shares = {}
+    for what, prof, wall in (("prefill", prof_prefill, run["prefill_ms"]),
+                             ("decode step", prof_decode,
+                              run["decode_ms_per_step"])):
+        busy = sum(prof.values())
+        shares[what] = {k: ms / wall for k, ms in prof.items()}
+        print(f"# phase 7 {what}: device busy {busy:.4f} ms of "
+              f"{wall:.4f} ms (busy share {busy / wall:.4f}): flash "
+              f"attention {prof['flash_attention']:.4f} ms "
+              f"({prof['flash_attention'] / wall:.4f}), moe_gmm "
+              f"{prof['moe_gmm']:.4f} ms ({prof['moe_gmm'] / wall:.4f}), "
+              f"other {prof['other']:.4f} ms on {smi}")
+    _print_others("prefill", raw_prefill)
+    _print_others("decode step", raw_decode)
+
+    # host cost of the wgmma grouped matmul's launches in one decode step:
+    # the ctypes call encodes two tensor maps, sets the shared-memory
+    # attribute and launches
+    sm90 = kernel_lib._launcher("moe_gmm_sm90", ())
+    host = []
+
+    def timed_sm90(*args):
+        t = time.perf_counter()
+        err = sm90(*args)
+        host.append(time.perf_counter() - t)
+        return err
+
+    kernel_lib._FNS["moe_gmm_sm90"] = timed_sm90
+    try:
+        go_decode()
+        torch.cuda.synchronize()
+    finally:
+        kernel_lib._FNS["moe_gmm_sm90"] = sm90
+    host_ms = sum(host) * 1e3
+    print(f"# phase 7 decode step: {len(host)} moe_gmm_sm90 launch calls "
+          f"take {host_ms:.4f} ms of host time "
+          f"({host_ms / max(len(host), 1):.4f} ms a call: tensor-map "
+          f"encoding, attribute, launch) of a "
+          f"{run['decode_ms_per_step']:.4f} ms step")
+
+    # -- (b) a second run with the layers' ops capturing a seeded sample ----
+    rnd = random.Random(0)
+    pick = {"flash": set(rnd.sample(range(cfg.n_layers), CAPTURE_SAMPLE)),
+            "gmm": set(rnd.sample(range(3 * cfg.n_layers), CAPTURE_SAMPLE)),
+            "dgmm": set(rnd.sample(range(3 * cfg.n_layers * (steps - 1)),
+                                   CAPTURE_SAMPLE))}
+    seen = {"flash": 0, "gmm": 0, "dgmm": 0}
+    captured = {"flash": [], "gmm": [], "dgmm": []}
+    prefill_counts = []
+
+    def flash_capture(q, k, v, causal, window):
+        out = op_flash(q, k, v, causal, window)
+        if seen["flash"] in pick["flash"]:
+            captured["flash"].append(((q, k, v, causal, window), out))
+        seen["flash"] += 1
+        return out
+
+    def gmm_capture(x, w, counts):
+        out = op_gmm(x, w, counts)
+        kind = "gmm" if x.shape[1] == C else "dgmm"
+        if kind == "gmm":
+            prefill_counts.append(counts.clone())
+        if seen[kind] in pick[kind]:
+            captured[kind].append(((x, w, counts.clone()), out))
+        seen[kind] += 1
+        return out
+
+    with _patched(layers, flash_attention=flash_capture,
+                  moe_gmm=gmm_capture):
+        again = serve.serve(cfg, batch=B, prompt_len=S, steps=steps,
+                            model=model, seed=0)
+    check(torch.equal(again["tokens"], tokens),
+          "phase 7 (b): a second run generated other tokens")
+    del again
+
+    # bounds: the prefill by operations over the live tiles' rows, the
+    # decode step by the bytes of the weights it touches and its cache
+    D, H, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    T = B * S
+    gmm_rows = sum(_gmm_rows(c, C) for c in prefill_counts[::3])
+    proj_ops = 2.0 * T * D * (2 * H * hd + 2 * hkv * hd + E) * cfg.n_layers
+    gmm_ops = 2.0 * 3 * gmm_rows * D * Fe
+    attn_ops = 4.0 * hd * B * H * (S * (S + 1) / 2) * cfg.n_layers
+    logit_ops = 2.0 * B * D * cfg.padded_vocab
+    prefill_ops = proj_ops + gmm_ops + attn_ops + logit_ops
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prefill_bound = max(prefill_ops / BF16_OPS_PER_S,
+                        w_bytes / HBM_BYTES_PER_S) * 1e3
+    touched = []
+    with _patched(layers, moe_gmm=lambda x, w, c: (
+            touched.append(int((c > 0).sum())), op_gmm(x, w, c))[1]):
+        go_decode()
+    expert_bytes = 2 * D * Fe * sum(touched)          # one matrix a call
+    dense_bytes = w_bytes - 2 * 3 * E * D * Fe * cfg.n_layers
+    cache_bytes = 2 * 2 * B * (S + steps) * hkv * hd * cfg.n_layers
+    decode_bytes = expert_bytes + dense_bytes + cache_bytes
+    decode_bound = decode_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"# phase 7 bounds: prefill {prefill_bound:.4f} ms by operations "
+          f"({prefill_ops:.6g}: moe_gmm {gmm_ops:.6g} over {gmm_rows} live "
+          f"tile rows of 32 layers, projections and router {proj_ops:.6g}, "
+          f"causal attention {attn_ops:.6g}, logits {logit_ops:.6g}) at "
+          f"989 TFLOP/s; decode step {decode_bound:.4f} ms by bytes "
+          f"({decode_bytes} B: {sum(touched) // 3} touched expert sets, "
+          f"dense weights {dense_bytes} B, cache {cache_bytes} B) at "
+          f"3.35 TB/s; measured {run['prefill_ms'] / prefill_bound:.2f}x "
+          f"and {run['decode_ms_per_step'] / decode_bound:.2f}x the bounds "
+          f"on {smi}")
+
+
+    # -- (b) every captured call against its plain version -------------------
+    errs = {"flash": 0.0, "gmm": 0.0, "dgmm": 0.0}
+    empty = 0
+    for (q, k, v, causal, window), out in captured["flash"]:
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        check(_close(out, want, BF16_ATTN_TOL),
+              f"phase 7 (b): flash attention {tuple(q.shape)} != plain")
+        errs["flash"] = max(errs["flash"], _err(out, want))
+    for kind in ("gmm", "dgmm"):
+        for (x, w, counts), out in captured[kind]:
+            want = moe_gmm_plain(x, w, counts)
+            check(_close(out, want, 5e-2),
+                  f"phase 7 (b): moe_gmm {tuple(x.shape)} != plain")
+            errs[kind] = max(errs[kind], _err(out, want))
+            dead = torch.arange(x.shape[1], device=dev)[None, :] \
+                >= counts[:, None]
+            check(bool((out[dead] == 0).all()),
+                  f"phase 7 (b): moe_gmm {tuple(x.shape)}: rows past the "
+                  "counts (empty experts included) are not exact zeros")
+            empty += int((counts == 0).sum())
+    check(all(len(captured[k]) == CAPTURE_SAMPLE for k in captured),
+          f"phase 7 (b): capture missed calls: "
+          f"{ {k: len(v) for k, v in captured.items()} }")
+    print(f"phase 7 (b): {CAPTURE_SAMPLE} flash attention calls "
+          f"{tuple(captured['flash'][0][0][0].shape)} within "
+          f"{_tol_text(BF16_ATTN_TOL)} of the plain version (max abs err "
+          f"{errs['flash']:.4g}); {CAPTURE_SAMPLE} prefill moe_gmm calls "
+          f"within 5e-2 ({errs['gmm']:.4g}) and {CAPTURE_SAMPLE} decode "
+          f"calls ({errs['dgmm']:.4g}); dead rows exact zeros, "
+          f"{empty} empty experts among them, on {smi}")
+
+    # kernel, plain version and library call at the model's shapes
+    (q, k, v, causal, window), _ = captured["flash"][0]
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    (x, w, counts), _ = captured["gmm"][0]
+    (dx, dw, dcounts), _ = captured["dgmm"][0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timing = {
+        "flash_attention_sm90": (
+            lambda: flash_attention_fwd(qc, kc, vc, causal=True),
+            lambda: flash_attention_plain(qc, kc, vc, causal=True),
+            lambda: sdpa(qc, kc, vc, is_causal=True),
+            _nbytes(qc, kc, vc, qc),
+            4.0 * hd * B * H * (S * (S + 1) / 2)),
+        "moe_gmm_sm90": (
+            lambda: moe_gmm_fwd(x, w, counts),
+            lambda: moe_gmm_plain(x, w, counts),
+            lambda: torch.bmm(x, w),
+            (int(counts.sum()) * x.shape[2]
+             + int((counts > 0).sum()) * w.shape[1] * w.shape[2]
+             + x.shape[0] * x.shape[1] * w.shape[2]) * 2 + 4 * E,
+            2.0 * int(counts.sum()) * w.shape[1] * w.shape[2]),
+        "moe_gmm_sm90 decode": (
+            lambda: moe_gmm_fwd(dx, dw, dcounts),
+            lambda: moe_gmm_plain(dx, dw, dcounts),
+            lambda: torch.bmm(dx, dw),
+            (int(dcounts.sum()) * dx.shape[2]
+             + int((dcounts > 0).sum()) * dw.shape[1] * dw.shape[2]
+             + dx.shape[0] * dx.shape[1] * dw.shape[2]) * 2 + 4 * E,
+            2.0 * int(dcounts.sum()) * dw.shape[1] * dw.shape[2]),
+    }
+    times = {}
+    for name, (fwd, plain, lib, nbytes, ops) in timing.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+        times[name] = {
+            "ms": time_ms(fwd, 10), "plain_ms": time_ms(plain, 3),
+            "library_ms": time_ms(lib, 10),
+            "device_ms": sum(profile_launch(fwd).values()) or None,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        tm = times[name]
+        print(f"# phase 7 {name} at the model's shape: kernel "
+              f"{tm['ms']:.4f} ms (device {tm['device_ms']} ms), plain "
+              f"{tm['plain_ms']:.4f} ms, library call "
+              f"{tm['library_ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms by "
+              f"{tm['bound_by']} on {smi}")
+    del captured, run, caches
+
+    # -- (c) the same model in f32: kernels against plain versions ----------
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    m32 = Model(cfg32, device="meta")
+    m32.load_state_dict({n: t.float() for n, t in model.state_dict().items()},
+                        assign=True)
+    del model
+    torch.cuda.empty_cache()
+
+    def f32_run():
+        logits, cache = m32.prefill(batch, cache_len=S + 1)
+        first = logits[:, -1].argmax(-1)[:, None]
+        step, _ = m32.decode_step(first, cache, S)
+        torch.cuda.synchronize()
+        return logits, first, step[:, -1].argmax(-1)[:, None]
+
+    reset()
+    logits_k, first_k, next_k = f32_run()
+    f32_counts = read()
+    check(f32_counts["flash_attention"] == cfg.n_layers
+          and f32_counts["moe_gmm"] == 2 * 3 * cfg.n_layers
+          and f32_counts["flash_attention_sm90"] == 0
+          and f32_counts["moe_gmm_sm90"] == 0,
+          f"phase 7 (c): the f32 prefill and decode step missed the f32 "
+          f"kernels: {f32_counts}")
+    plain_flash = (lambda q, k, v, causal, window:
+                   flash_attention_plain(q, k, v, causal=causal,
+                                         window=window))
+    with _patched(layers, flash_attention=plain_flash,
+                  moe_gmm=moe_gmm_plain):
+        logits_p, first_p, next_p = f32_run()
+    err = _err(logits_k, logits_p)
+    check(_close(logits_k, logits_p, F32_MODEL_TOL),
+          f"phase 7 (c): f32 logits on the kernels differ from the plain "
+          f"versions' by {err:.4g}, past {_tol_text(F32_MODEL_TOL)}")
+    check(torch.equal(first_k, first_p) and torch.equal(next_k, next_p),
+          "phase 7 (c): greedy tokens on the kernels differ from the plain "
+          "versions'")
+    top2 = torch.topk(logits_p[:, -1], 2).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    # planted errors: the queries' rotation one position late (a shift of
+    # every position alike would cancel in q.k), two experts swapped
+    rope = layers.rope
+
+    def late_q(x, pos, theta):
+        return rope(x, pos + int(x.shape[-2] == cfg.n_heads), theta)
+
+    with _patched(layers, rope=late_q):
+        logits_r, _, _ = f32_run()
+    ffn = m32.blocks[0].ffn.p
+    for name in ("wg", "wu", "wd"):
+        ffn[name][[0, 1]] = ffn[name][[1, 0]]
+    logits_s, _, _ = f32_run()
+    for name in ("wg", "wu", "wd"):
+        ffn[name][[0, 1]] = ffn[name][[1, 0]]
+    planted = {"queries rotated one position late": logits_r,
+               "experts 0 and 1 of layer 0 swapped": logits_s}
+    seen_err = []
+    for what, bad in planted.items():
+        check(not _close(bad, logits_p, F32_MODEL_TOL),
+              f"phase 7 (c): tolerance {_tol_text(F32_MODEL_TOL)} misses "
+              f"{what}")
+        seen_err.append(f"{what}: max abs err {_err(bad, logits_p):.4g}")
+    print(f"phase 7 (c): f32 model on the f32 kernels ({f32_counts}) "
+          f"within {_tol_text(F32_MODEL_TOL)} of the plain versions (max abs "
+          f"err {err:.4g}, logits up to "
+          f"{float(logits_p.abs().max()):.4g}); greedy tokens of the "
+          f"prefill and first decode step identical (smallest top-2 margin "
+          f"{margin:.4g}); refuses {'; '.join(seen_err)}; on {smi}")
+    del m32
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention_sm90": dict(
+            times["flash_attention_sm90"],
+            launches_prefill=after_prefill["flash_attention_sm90"],
+            launches_decode=decode_counts["flash_attention_sm90"],
+            max_abs_err=errs["flash"],
+            device_ms_prefill=prof_prefill["flash_attention"],
+            share_prefill=shares["prefill"]["flash_attention"]),
+        "moe_gmm_sm90": dict(
+            times["moe_gmm_sm90"],
+            decode=times["moe_gmm_sm90 decode"],
+            launches_prefill=after_prefill["moe_gmm_sm90"],
+            launches_decode=decode_counts["moe_gmm_sm90"],
+            max_abs_err=max(errs["gmm"], errs["dgmm"]),
+            device_ms_prefill=prof_prefill["moe_gmm"],
+            share_prefill=shares["prefill"]["moe_gmm"],
+            device_ms_decode_step=prof_decode["moe_gmm"],
+            share_decode_step=shares["decode step"]["moe_gmm"],
+            host_ms_decode_step=host_ms),
+        "flash_attention": {"launches_f32_prefill":
+                            f32_counts["flash_attention"],
+                            "max_abs_err_f32_logits": err},
+        "moe_gmm": {"launches_f32_prefill_and_step": f32_counts["moe_gmm"],
+                    "launches_decode": decode_counts["moe_gmm"],
+                    "max_abs_err_f32_logits": err},
+    }
+
 def main() -> int:
     if not (SRC / "repro_torch" / "core").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -1644,6 +2129,11 @@ def main() -> int:
     for k, mode in ((kernels[0], "scalar"), (kernels[1], "block")):
         k["phase6_launches"] = {part: c.get(mode, 0)
                                 for part, c in p6.items()}
+    # -- phase 7: the model stack's serving path at full width ----------------
+    p7 = phase7(dev, smi)
+    for k in kernels:
+        if k["name"] in p7:
+            k["model_path"] = p7[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -54,9 +54,13 @@ DiskStore` and the cluster fabric), so translations — on ``cuda`` the
 A session lives on one ``torch.device``: ``cuda:0`` unless the caller asks
 for ``device="cpu"`` (it raises when there is no GPU and no device was
 given).  Device buffers are tensors on that device, and launch state stays
-there between segments.  Not ported yet (ROADMAP.md, Queue A): the
-deprecated string-keyed shim (``load_kernel``/``gpu_malloc``/``memcpy_*``/
-``launch``/``device_synchronize``).
+there between segments.
+
+The old string-keyed surface (``load_kernel`` / ``gpu_malloc`` /
+``memcpy_h2d`` / ``memcpy_d2h`` / ``launch`` / ``device_synchronize``)
+survives as a thin deprecated shim on top of the object model — each call
+raises :class:`DeprecationWarning` and is mapped in docs/API.md's
+old→new table.
 """
 from __future__ import annotations
 
@@ -64,6 +68,7 @@ import itertools
 import os
 import time
 import uuid
+import warnings
 from collections import deque
 from dataclasses import dataclass
 from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
@@ -150,6 +155,13 @@ def _next_uid() -> str:
     return f"b{_UID_SALT}-{next(_UID_COUNTER)}"
 
 
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"HetSession.{old} is deprecated; use {new} instead "
+        "(driver-style API — see docs/API.md for the old→new table)",
+        DeprecationWarning, stacklevel=3)
+
+
 def _ir_dtype(dtype) -> str:
     """hetIR dtype code of a hetIR code, numpy dtype or torch dtype."""
     if isinstance(dtype, torch.dtype):
@@ -158,6 +170,14 @@ def _ir_dtype(dtype) -> str:
                 return code
         raise TypeError(f"no hetIR dtype for {dtype}")
     return ir.ir_dtype(dtype)
+
+
+def _np_torch_dtype(np_dt: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, np_dt)).dtype
+
+
+def _torch_np_dtype(tdt: torch.dtype) -> np.dtype:
+    return torch.zeros(0, dtype=tdt).numpy().dtype
 
 
 def _host_array(host, np_dt: np.dtype, size: int) -> np.ndarray:
@@ -204,8 +224,16 @@ class DeviceBuffer:
                  pool: Optional[BufferPool] = None):
         self.session = session
         self.uid = uid if uid is not None else _next_uid()
-        self.dtype: str = _ir_dtype(dtype)
-        tdt = torch_dtype(self.dtype)
+        # non-hetIR dtypes (f64, f16, ...) are allocatable for host-side
+        # staging — the legacy memcpy surface accepted them — but carry
+        # dtype=None and are rejected by the typed Function binding
+        try:
+            self.dtype: Optional[str] = _ir_dtype(dtype)
+            tdt = torch_dtype(self.dtype)
+        except TypeError:
+            self.dtype = None
+            tdt = dtype if isinstance(dtype, torch.dtype) \
+                else _np_torch_dtype(np.dtype(dtype))
         size = int(size)
         if pool is not None:
             self._backing: Optional[torch.Tensor] = pool.take(
@@ -227,7 +255,8 @@ class DeviceBuffer:
 
     @property
     def np_dtype(self) -> np.dtype:
-        return ir.np_dtype(self.dtype)
+        return ir.np_dtype(self.dtype) if self.dtype is not None \
+            else _torch_np_dtype(self.data.dtype)
 
     # -- transfers ---------------------------------------------------------
     def copy_from_host(self, host) -> "DeviceBuffer":
@@ -731,12 +760,19 @@ class LaunchRecord:
     def _finish(self) -> None:
         """Completion hook: propagate kernel writes into the bound
         DeviceBuffers *in place* (object identity preserved), device to
-        device.  The typed binding guarantees matching dtypes."""
+        device.  The typed binding guarantees matching dtypes on the new
+        surface; a legacy buffer whose dtype differs from the kernel
+        param's falls back to the old rebind-the-array semantics."""
         self.finished = True
         for name, db in self.bindings.items():
             if db.freed:
                 continue
-            db.data.copy_(self._engine.state.globals_[name])
+            res = self._engine.state.globals_[name]
+            if res.dtype == db.data.dtype:
+                db.data.copy_(res)
+            else:
+                db.data = res.clone()
+                db.dtype = _ir_dtype(res.dtype)
         dev = self.session.device
         if dev.type == "cuda":
             self.done_event = torch.cuda.Event(enable_timing=True)
@@ -999,6 +1035,14 @@ class HetSession:
         #: ``stats["sched_trace_dropped"]`` counts evictions.
         self.sched_trace = TraceRing(trace_cap)
         self.pause_flag = False  # the paper's cooperative pause flag
+
+        # -- legacy shim state --------------------------------------------
+        self._named: Dict[str, DeviceBuffer] = {}    # gpu_malloc names
+        self._named_shapes: Dict[str, Tuple[int, ...]] = {}  # host shapes
+        self._legacy_streams: Dict[int, Stream] = {0: self.default_stream}
+        # append-only per-legacy-stream launch history (old `_streams`
+        # shape: Dict[int, List[LaunchRecord]])
+        self._streams: Dict[int, List[LaunchRecord]] = {0: []}
 
         self.stats = {"launches": 0, "launch_ms": 0.0, "translate_ms": 0.0,
                       "segments_executed": 0, "migrations": 0,
@@ -1365,9 +1409,9 @@ class HetSession:
         return rec.engine.snapshot().to_bytes()
 
     def restore(self, kernel: Union[str, Function], blob: bytes,
-                stream: Optional[Stream] = None) -> LaunchRecord:
+                stream: Union[None, int, Stream] = None) -> LaunchRecord:
         """Re-instantiate a checkpoint onto a caller-chosen stream
-        (default stream if None).
+        (default stream if None; a legacy int names an old-style stream).
 
         Buffer identity: each restored global re-binds the session's live
         :class:`DeviceBuffer` with the snapshot's recorded uid when one
@@ -1379,7 +1423,13 @@ class HetSession:
         fn = kernel if isinstance(kernel, Function) \
             else self.function(kernel)
         eng = Engine.resume(fn.program, self.backend, snap)
-        if stream is None:
+        history_key: Optional[int] = None
+        if isinstance(stream, (int, np.integer)):
+            # legacy int stream: the history view below must use the
+            # caller's id, which need not equal the Stream's internal sid
+            history_key = int(stream)
+            st = self._legacy_stream(history_key)
+        elif stream is None:
             st = self.default_stream
         elif stream.session is not self:
             raise ValueError("stream belongs to a different session")
@@ -1406,6 +1456,8 @@ class HetSession:
             rec._finish()
         else:
             st._enqueue(rec)
+        self._streams.setdefault(
+            st.sid if history_key is None else history_key, []).append(rec)
         return rec
 
     def run_to_completion(self, rec: LaunchRecord) -> None:
@@ -1413,6 +1465,131 @@ class HetSession:
         ``rec.wait()``; kept for the pre-driver-API callers)."""
         rec.wait()
         self._sync_cache_stats()
+
+    # ======================================================================
+    # Deprecated string-keyed shim (old→new table in docs/API.md)
+    # ======================================================================
+    def load_kernel(self, program: ir.Program) -> str:
+        """Deprecated: use :meth:`load` (returns a :class:`Module`)."""
+        _deprecated("load_kernel(program)", "session.load(program)")
+        self.load(program)
+        return program.name
+
+    def gpu_malloc(self, name: str, shape, dtype=np.float32) -> torch.Tensor:
+        """Deprecated: use :meth:`alloc` (returns a typed
+        :class:`DeviceBuffer` handle instead of registering a name).
+
+        The old surface preserved multi-dim shapes and accepted any numpy
+        dtype; the shim keeps both (the returned tensor is a shape-intact
+        *view* of the underlying linear buffer, on the session's
+        device)."""
+        _deprecated("gpu_malloc(name, shape)", "session.alloc(shape, dtype)")
+        db = self.alloc(shape, dtype)
+        self._named[name] = db
+        self._named_shapes[name] = (int(shape),) \
+            if isinstance(shape, (int, np.integer)) \
+            else tuple(int(d) for d in shape)
+        return db.data.view(self._named_shapes[name])
+
+    def memcpy_h2d(self, name: str, host) -> None:
+        """Deprecated: use :meth:`DeviceBuffer.copy_from_host`."""
+        _deprecated("memcpy_h2d(name, host)", "buffer.copy_from_host(host)")
+        host = to_numpy(host) if isinstance(host, torch.Tensor) \
+            else np.asarray(host)
+        db = self._named.get(name)
+        if db is None or db.size != host.size or db.np_dtype != host.dtype:
+            # old memcpy_h2d rebound the name wholesale; emulate
+            db = self.alloc(host.size, host.dtype)
+            self._named[name] = db
+        self._named_shapes[name] = host.shape
+        db.copy_from_host(host)
+
+    def memcpy_d2h(self, name: str) -> np.ndarray:
+        """Deprecated: use :meth:`DeviceBuffer.copy_to_host`."""
+        _deprecated("memcpy_d2h(name)", "buffer.copy_to_host()")
+        out = self._named[name].copy_to_host()
+        shape = self._named_shapes.get(name)
+        return out.reshape(shape) if shape is not None else out
+
+    def _legacy_stream(self, sid: int) -> Stream:
+        st = self._legacy_streams.get(sid)
+        if st is None:
+            st = self.stream()
+            self._legacy_streams[sid] = st
+        return st
+
+    def launch(self, kernel: str, grid: int, block: int,
+               args: Dict[str, object], stream: int = 0,
+               blocking: bool = True) -> LaunchRecord:
+        """Deprecated: use :meth:`Function.launch` /
+        :meth:`Function.launch_async` with DeviceBuffer arguments.
+
+        Shim semantics (unchanged where safe, fixed where lossy): buffer
+        params resolve from explicit ``args`` first, then by name against
+        ``gpu_malloc`` buffers.  A resolved session buffer — including one
+        the caller passed *explicitly* (the old code silently dropped
+        those writes) — receives the kernel's writes in place.  A raw host
+        array passed explicitly keeps copy-in semantics and is never
+        mutated; read results via the record's engine."""
+        _deprecated("launch(kernel, ...)",
+                    "module.function(name).launch_async(...)")
+        fn = self.function(kernel)
+        eng_args: Dict[str, object] = {}
+        bindings: Dict[str, DeviceBuffer] = {}
+        for p in fn.program.params:
+            named = self._named.get(p.name) \
+                if isinstance(p, ir.Ptr) else None
+            if p.name in args:
+                v = args[p.name]
+                if isinstance(v, DeviceBuffer):
+                    eng_args[p.name] = v
+                    bindings[p.name] = v
+                elif named is not None and _shares_memory(v, named.data):
+                    # an explicitly passed session buffer (or the
+                    # gpu_malloc-returned view of it) is still a session
+                    # buffer and receives the kernel's writes
+                    eng_args[p.name] = named
+                    bindings[p.name] = named
+                else:
+                    eng_args[p.name] = v
+            elif named is not None:
+                eng_args[p.name] = named
+                bindings[p.name] = named
+            else:
+                raise ValueError(f"missing argument {p.name}")
+        st = self._legacy_stream(stream)
+        t0 = time.perf_counter()
+        rec = LaunchRecord(self, fn, grid, block, eng_args, bindings, st)
+        rec._materialize()      # old surface bound eagerly; tests poke
+        st._enqueue(rec)        # rec.engine right after a non-blocking
+        self._streams.setdefault(stream, []).append(rec)  # legacy view
+        self.stats["launches"] += 1
+        self.stats["launch_ms"] += (time.perf_counter() - t0) * 1e3
+        if blocking:
+            rec.wait()
+        self._sync_cache_stats()
+        return rec
+
+    def device_synchronize(self, stream: int = 0) -> None:
+        """Deprecated: use :meth:`Stream.synchronize` (one stream) or
+        :meth:`HetSession.synchronize` (all streams).  Unlike the old
+        implementation this *completes* the results: kernel writes land in
+        the session buffers (the old path ran the engines but never wrote
+        back — non-blocking launches silently dropped their results)."""
+        _deprecated("device_synchronize(stream)",
+                    "stream.synchronize() / session.synchronize()")
+        self._legacy_stream(stream).synchronize()
+
+
+def _shares_memory(value, data: torch.Tensor) -> bool:
+    """Is ``value`` (a tensor, or a host array over a CPU tensor's memory)
+    a view of the buffer ``data``?"""
+    if isinstance(value, torch.Tensor):
+        return value.device == data.device and \
+            value.untyped_storage().data_ptr() \
+            == data.untyped_storage().data_ptr()
+    return isinstance(value, np.ndarray) and data.device.type == "cpu" \
+        and np.shares_memory(value, data.numpy())
 
 
 def _synthesize_args(prog: ir.Program, grid: int,

@@ -1,0 +1,229 @@
+"""Model assembly of the serving path: embeddings, blocks, caches, prefill
+and decode.  Port of ``src/repro/models/model.py`` for the decoder-only
+attention families (block kinds ``ATTN``/``SWA`` with ``DENSE_FFN`` or
+``MOE_FFN``, the ``patch`` frontend stub).
+
+:class:`Model` is an ``nn.Module`` holding the embedding table (padded
+vocab rows), one :class:`Block` per layer in a plain ``ModuleList`` (the
+JAX package stacks each layer group for ``lax.scan``), the final norm, the
+untied unembedding where the config has one, and the frontend projection.
+Parameters keep the JAX layouts and names, so ``state_dict()`` keys read
+like the JAX tree's paths (``blocks.3.mixer.wq`` for layer 3's
+``groups[g]["slot0"]["mixer"]["wq"][r]``; see :mod:`.convert`).  Serving
+only: parameters do not require gradients, and :meth:`Model.prefill` and
+:meth:`Model.decode_step` run without autograd.
+
+A model lives on one device: ``cuda:0`` unless the caller names another
+(``device="cpu"`` runs the kernels' plain versions; ``"meta"`` allocates
+nothing, for parameter counts).  RG-LRU, mLSTM and sLSTM blocks,
+cross-attention and the encoder–decoder family join the port in later
+slices; building a model that holds one raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..configs.base import (ATTN, DENSE_FFN, MLSTM, MOE_FFN, NO_FFN, RGLRU,
+                            SLSTM, SWA, BlockSpec, ModelConfig)
+from ..core.backends.base import resolve_device
+from . import layers as L
+
+Cache = Dict[str, torch.Tensor]
+
+#: the block kinds of later slices, and the slice that brings each
+LATER_SLICES = {
+    RGLRU: "the recurrent slice (recurrentgemma-2b, rglru_scan)",
+    MLSTM: "the recurrent slice (xlstm-125m, mlstm_chunk)",
+    SLSTM: "the recurrent slice (xlstm-125m, sLSTM)",
+    "cross_attn": "the encoder-decoder slice (whisper-large-v3)",
+    "encoder_decoder": "the encoder-decoder slice (whisper-large-v3)",
+}
+
+
+def _not_in_slice(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{kind} is not in the port's serving slice yet: it joins with "
+        f"{LATER_SLICES[kind]} (ROADMAP.md)")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+class ParamDict(nn.Module):
+    """A named set of parameters (one entry of the JAX tree's dicts);
+    :attr:`p` is the mapping the layer functions take."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t,
+                                                       requires_grad=False))
+
+    @property
+    def p(self) -> Dict[str, torch.Tensor]:
+        return self._parameters
+
+
+class Block(nn.Module):
+    """One decoder block: pre-norm mixer and pre-norm FFN (dense or MoE),
+    each added to the residual stream."""
+
+    def __init__(self, cfg: ModelConfig, spec: BlockSpec, dtype, device,
+                 generator):
+        super().__init__()
+        if spec.mixer not in (ATTN, SWA):
+            raise _not_in_slice(spec.mixer)
+        if spec.cross_attn:
+            raise _not_in_slice("cross_attn")
+        self.cfg, self.spec = cfg, spec
+        self.window = cfg.window if spec.mixer == SWA else None
+        self.norm1 = ParamDict(L.init_norm(cfg, dtype, device))
+        self.mixer = ParamDict(L.init_attention(cfg, dtype, device,
+                                                generator))
+        if spec.ffn == DENSE_FFN:
+            self.norm2 = ParamDict(L.init_norm(cfg, dtype, device))
+            self.ffn = ParamDict(L.init_ffn(cfg, dtype, device, generator))
+        elif spec.ffn == MOE_FFN:
+            self.norm2 = ParamDict(L.init_norm(cfg, dtype, device))
+            self.ffn = ParamDict(L.init_moe(cfg, dtype, device, generator))
+        elif spec.ffn != NO_FFN:
+            raise ValueError(spec.ffn)
+
+    def cache_len(self, seq_len: int) -> int:
+        if self.window is not None:
+            return min(self.window, seq_len)
+        return seq_len
+
+    def _ffn(self, x):
+        if self.spec.ffn == NO_FFN:
+            return x
+        h = L.apply_norm(x, self.norm2.p, self.cfg)
+        if self.spec.ffn == DENSE_FFN:
+            return x + L.ffn(h, self.ffn.p, self.cfg)
+        return x + L.moe_ffn(h, self.ffn.p, self.cfg)
+
+    def prefill(self, x, positions, cache_len: int):
+        """The block over the full prompt; returns (x, filled cache)."""
+        cfg = self.cfg
+        h = L.apply_norm(x, self.norm1.p, cfg)
+        S = x.shape[1]
+        y, k, v = L.attention(h, self.mixer.p, cfg, window=self.window,
+                              positions=positions)
+        if cache_len >= S:
+            pad = (0, 0, 0, 0, 0, cache_len - S)
+            k, v = torch.nn.functional.pad(k, pad), \
+                torch.nn.functional.pad(v, pad)
+        else:  # windowed ring cache keeps the tail; slot(p) = p % cache_len
+            start = S - cache_len
+            k = torch.roll(k[:, start:], shifts=S % cache_len, dims=1)
+            v = torch.roll(v[:, start:], shifts=S % cache_len, dims=1)
+        return self._ffn(x + y), {"k": k.contiguous(), "v": v.contiguous()}
+
+    def decode(self, x, cache: Cache, pos: int):
+        """One token; writes its k/v into ``cache`` in place."""
+        h = L.apply_norm(x, self.norm1.p, self.cfg)
+        y, cache = L.attention_decode(h, self.mixer.p, self.cfg, cache, pos,
+                                      window=self.window)
+        return self._ffn(x + y), cache
+
+
+class Model(nn.Module):
+    """A decoder-only model of ``cfg`` with parameters drawn from
+    ``generator`` (normal, the JAX package's scales) on ``device``."""
+
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        if cfg.encoder_decoder:
+            raise _not_in_slice("encoder_decoder")
+        device = resolve_device(device)
+        dtype = _dtype(cfg.param_dtype)
+        self.cfg = cfg
+        s = 1.0 / math.sqrt(cfg.d_model)
+        self.embed = nn.Parameter(L.normal(
+            (cfg.padded_vocab, cfg.d_model), s, dtype, device, generator),
+            requires_grad=False)
+        self.final_norm = ParamDict(L.init_norm(cfg, dtype, device))
+        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
+            L.normal((cfg.d_model, cfg.padded_vocab), s, dtype, device,
+                     generator), requires_grad=False)
+        self.frontend = None if cfg.frontend == "none" else ParamDict(
+            {"proj": L.normal((cfg.d_model, cfg.d_model), s, dtype, device,
+                              generator)})
+        self.blocks = nn.ModuleList(
+            Block(cfg, spec, dtype, device, generator)
+            for spec in cfg.blocks())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return _dtype(self.cfg.compute_dtype)
+
+    # -- embedding / logits ------------------------------------------------
+    def _embed(self, tokens):
+        return self.embed[tokens].to(self.compute_dtype)
+
+    def _logits(self, x):
+        """f32 logits over the padded vocab."""
+        w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return (x @ w.to(x.dtype)).float()
+
+    def _assemble_input(self, batch):
+        """tokens (+ stub-frontend embeds, prepended) -> (x [B,S,D],
+        positions).  The JAX package's loss mask waits for training."""
+        x = self._embed(batch["tokens"])
+        if self.frontend is not None and "embeds" in batch:
+            e = batch["embeds"].to(x.dtype) @ self.frontend.p["proj"] \
+                .to(x.dtype)
+            x = torch.cat([e, x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        return x, positions
+
+    # -- caches ------------------------------------------------------------
+    def init_caches(self, batch: int, seq_len: int) -> List[Cache]:
+        """Zeroed k/v caches, one per block (windowed blocks hold a ring
+        of ``min(window, seq_len)`` slots)."""
+        cfg = self.cfg
+        out = []
+        for blk in self.blocks:
+            shape = (batch, blk.cache_len(seq_len), cfg.n_kv_heads, cfg.hd)
+            out.append({n: torch.zeros(shape, dtype=self.compute_dtype,
+                                        device=self.device)
+                        for n in ("k", "v")})
+        return out
+
+    # -- serving entry points ----------------------------------------------
+    @torch.no_grad()
+    def prefill(self, batch, *, cache_len: Optional[int] = None):
+        """Process a full prompt; returns (last-position logits [B,1,Vp]
+        f32, caches)."""
+        x, positions = self._assemble_input(batch)
+        S = x.shape[1]
+        cache_len = cache_len or S
+        caches = []
+        for blk in self.blocks:
+            x, c = blk.prefill(x, positions, blk.cache_len(cache_len))
+            caches.append(c)
+        x = L.apply_norm(x, self.final_norm.p, self.cfg)
+        return self._logits(x[:, -1:, :]), caches
+
+    @torch.no_grad()
+    def decode_step(self, tokens, caches: List[Cache], pos: int):
+        """One decode step.  tokens: [B,1]; pos: the number of tokens
+        already in the cache.  Returns (logits [B,1,Vp] f32, caches), the
+        caches updated in place."""
+        x = self._embed(tokens)
+        for blk, c in zip(self.blocks, caches):
+            x, _ = blk.decode(x, c, int(pos))
+        x = L.apply_norm(x, self.final_norm.p, self.cfg)
+        return self._logits(x), caches
+

@@ -1,0 +1,264 @@
+"""The port's model stack (``repro_torch.models``) held against the JAX
+package's (``repro.models``) on the CPU.
+
+Each case builds the JAX smoke model with ``init_params(jax.random.key(0),
+cfg)`` in f32, carries its weights into the port through
+``params_from_jax``, feeds both the same prompt (numpy, from a seed) and
+holds the prefill's logits and caches, then three decode steps' logits
+(both packages fed the JAX greedy tokens), to 1e-4 absolute; the port's
+own greedy tokens must be the JAX ones.  On CPU tensors the layers' flash
+attention and grouped-matmul ops run their plain versions.  The cases
+cover a dense model (llama3.2-3b), the MoE with both dispatches
+(granite-moe-3b-a800m, ``moe_impl`` global and grouped), sliding-window
+attention with a prompt past its window, so that the ring cache rolls
+(h2o-danube-3-4b, window 16, 24 tokens), and the patch frontend
+(internvl2-2b).  The JAX references are computed once per case
+(module-scoped fixture).
+"""
+import dataclasses
+import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.configs import base as ref_base
+from repro.models import decode_step as jax_decode_step
+from repro.models import init_params as jax_init_params
+from repro.models import prefill as jax_prefill
+from repro.models import registry as ref_registry
+
+from repro_torch import configs
+from repro_torch.configs import base
+from repro_torch.models import (Model, active_param_count, param_count,
+                                params_from_jax)
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+#: f32 on both sides: sums in another order stay far inside 1e-4
+ATOL = 1e-4
+B, DECODE_STEPS = 2, 3
+#: (arch, moe_impl, prompt length including frontend tokens)
+CASES = [("llama3.2-3b", None, 16),
+         ("granite-moe-3b-a800m", "global", 16),
+         ("granite-moe-3b-a800m", "grouped", 16),
+         ("h2o-danube-3-4b", None, 24),
+         ("internvl2-2b", None, 16)]
+IDS = [f"{a}-{impl}" if impl else a for a, impl, _ in CASES]
+#: the architectures whose block kinds are all in the slice
+IN_SLICE = ("llama3.2-3b", "granite-moe-3b-a800m", "glm4-9b",
+            "h2o-danube-3-4b", "internvl2-2b", "mixtral-8x22b",
+            "llama3-405b")
+OUT_OF_SLICE = ("recurrentgemma-2b", "xlstm-125m", "whisper-large-v3")
+
+
+def _cfgs(arch, impl):
+    ref_cfg = ref_configs.get_smoke_config(arch)
+    cfg = configs.get_smoke_config(arch)
+    if impl is not None:
+        ref_cfg = dataclasses.replace(ref_cfg, moe_impl=impl)
+        cfg = dataclasses.replace(cfg, moe_impl=impl)
+    return ref_cfg, cfg
+
+
+def _prompt(cfg, S):
+    rng = np.random.default_rng(7)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S))}
+    if cfg.frontend == "patch":
+        out["embeds"] = (rng.normal(size=(B, cfg.frontend_tokens,
+                                          cfg.d_model)) * 0.02
+                         ).astype(np.float32)
+        out["tokens"] = out["tokens"][:, cfg.frontend_tokens:]
+    return out
+
+
+def _flat_caches(caches, cfg):
+    """The JAX grouped cache tree as one {"k","v"} per layer (numpy)."""
+    out = []
+    for (repeat, body), group in zip(cfg.layer_groups, caches):
+        for r in range(repeat):
+            for i in range(len(body)):
+                out.append({n: np.asarray(group[f"slot{i}"][n][r])
+                            for n in ("k", "v")})
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_trees():
+    """JAX's init_params(key(0)) of each smoke config, as numpy, made once
+    per architecture (both MoE dispatches share one tree)."""
+    trees = {}
+
+    def get(arch, ref_cfg):
+        if arch not in trees:
+            init = jax.jit(functools.partial(jax_init_params, cfg=ref_cfg))
+            trees[arch] = jax.tree.map(np.asarray, init(jax.random.key(0)))
+        return trees[arch]
+    return get
+
+
+@pytest.fixture(scope="module", params=CASES, ids=IDS)
+def case(request, jax_trees):
+    """The JAX reference of one case, and the port's run on its weights."""
+    arch, impl, S = request.param
+    ref_cfg, cfg = _cfgs(arch, impl)
+    tree = jax_trees(arch, ref_cfg)
+    prompt = _prompt(cfg, S)
+    cache_len = S + DECODE_STEPS + 1
+    jbatch = {k: jnp.asarray(v, jnp.int32 if k == "tokens" else jnp.float32)
+              for k, v in prompt.items()}
+    logits, caches = jax.jit(functools.partial(
+        jax_prefill, cfg=ref_cfg, cache_len=cache_len))(tree, jbatch)
+    ref = {"prefill": np.asarray(logits),
+           "caches": _flat_caches(caches, ref_cfg), "steps": []}
+    tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
+    ref["tokens"] = [np.asarray(tok)]
+    step = jax.jit(functools.partial(jax_decode_step, cfg=ref_cfg))
+    for i in range(DECODE_STEPS):
+        logits, caches = step(tree, tok, caches,
+                              jnp.asarray(S + i, jnp.int32))
+        ref["steps"].append(np.asarray(logits))
+        tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
+        ref["tokens"].append(np.asarray(tok))
+    ref["decode_caches"] = _flat_caches(caches, ref_cfg)
+
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(tree, cfg))
+    batch = {"tokens": torch.from_numpy(prompt["tokens"])}
+    if "embeds" in prompt:
+        batch["embeds"] = torch.from_numpy(prompt["embeds"])
+    logits, tcaches = model.prefill(batch, cache_len=cache_len)
+    got = {"prefill": logits.numpy(),
+           "caches": [{n: c[n].numpy().copy() for n in c} for c in tcaches],
+           "steps": [], "tokens": [logits[:, -1].argmax(-1)[:, None].numpy()]}
+    for i in range(DECODE_STEPS):
+        # both packages take the JAX greedy token of the step before
+        tok = torch.tensor(ref["tokens"][i], dtype=torch.long)
+        logits, tcaches = model.decode_step(tok, tcaches, S + i)
+        got["steps"].append(logits.numpy())
+        got["tokens"].append(logits[:, -1].argmax(-1)[:, None].numpy())
+    got["decode_caches"] = [{n: c[n].numpy() for n in c} for c in tcaches]
+    return {"cfg": cfg, "ref": ref, "got": got, "S": S}
+
+
+def _close(got, want, what):
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = float(np.max(np.abs(got - want)))
+    assert err <= ATOL, f"{what}: max abs err {err:.3g} > {ATOL}"
+
+
+def test_prefill_logits_match_jax(case):
+    assert case["got"]["prefill"].shape == \
+        (B, 1, case["cfg"].padded_vocab)
+    _close(case["got"]["prefill"], case["ref"]["prefill"], "prefill logits")
+
+
+def test_prefill_caches_match_jax(case):
+    got, want = case["got"]["caches"], case["ref"]["caches"]
+    assert len(got) == len(want) == case["cfg"].n_layers
+    for layer, (g, w) in enumerate(zip(got, want)):
+        for n in ("k", "v"):
+            _close(g[n], w[n], f"layer {layer} cache {n}")
+
+
+def test_decode_logits_and_caches_match_jax(case):
+    for i, (g, w) in enumerate(zip(case["got"]["steps"],
+                                   case["ref"]["steps"])):
+        _close(g, w, f"decode step {i} logits")
+    for layer, (g, w) in enumerate(zip(case["got"]["decode_caches"],
+                                       case["ref"]["decode_caches"])):
+        for n in ("k", "v"):
+            _close(g[n], w[n], f"layer {layer} cache {n} after decode")
+
+
+def test_greedy_tokens_match_jax(case):
+    for i, (g, w) in enumerate(zip(case["got"]["tokens"],
+                                   case["ref"]["tokens"])):
+        assert np.array_equal(g, w), f"step {i}: {g} != {w}"
+
+
+def test_windowed_cache_is_a_ring():
+    """h2o-danube's prompt of 24 tokens passes its window of 16: the
+    cache keeps 16 slots and position p sits in slot p % 16."""
+    cfg = configs.get_smoke_config("h2o-danube-3-4b")
+    model = Model(cfg, generator=torch.Generator().manual_seed(0),
+                  device="cpu")
+    S = 24
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, S)))
+    _, caches = model.prefill({"tokens": tokens}, cache_len=S + 4)
+    _, full = model.prefill({"tokens": tokens}, cache_len=None)
+    # the same model with no window keeps every position in order
+    nowin = Model(dataclasses.replace(cfg, window=None), device="cpu")
+    nowin.load_state_dict(model.state_dict())
+    _, flat = nowin.prefill({"tokens": tokens}, cache_len=S)
+    assert caches[0]["k"].shape[1] == cfg.window
+    for p in range(S - cfg.window, S):
+        torch.testing.assert_close(caches[0]["k"][:, p % cfg.window],
+                                   flat[0]["k"][:, p], rtol=0, atol=0)
+    assert full[0]["k"].shape[1] == cfg.window
+
+
+@pytest.mark.parametrize("arch", IN_SLICE)
+def test_param_counts_match_reference(arch):
+    ref_cfg, cfg = ref_configs.get_config(arch), configs.get_config(arch)
+    assert param_count(cfg) == ref_registry.param_count(ref_cfg)
+    assert active_param_count(cfg) == ref_registry.active_param_count(
+        ref_cfg)
+
+
+def test_configs_equal_reference():
+    assert configs.list_archs() == ref_configs.list_archs()
+    for arch in ref_configs.list_archs():
+        for get in ("get_config", "get_smoke_config", "get_optimized_config",
+                    "get_optimized_smoke_config"):
+            ref_cfg = getattr(ref_configs, get)(arch)
+            cfg = getattr(configs, get)(arch)
+            assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+            assert cfg.param_count() == ref_cfg.param_count()
+            assert cfg.active_param_count() == ref_cfg.active_param_count()
+            assert cfg.padded_vocab == ref_cfg.padded_vocab
+            for shape in ref_base.SHAPES.values():
+                assert base.shape_applicable(cfg, base.SHAPES[shape.name]) \
+                    == ref_base.shape_applicable(ref_cfg, shape)
+                assert base.default_parallel(cfg, base.SHAPES[shape.name]) \
+                    .__dict__ == ref_base.default_parallel(
+                        ref_cfg, shape).__dict__
+    assert {k: dataclasses.asdict(v) for k, v in base.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in ref_base.SHAPES.items()}
+    assert configs.OPTIMIZED_PROFILE == ref_configs.OPTIMIZED_PROFILE
+
+
+@pytest.mark.parametrize("arch", OUT_OF_SLICE)
+def test_out_of_slice_blocks_raise(arch):
+    with pytest.raises(NotImplementedError, match="later|joins"):
+        Model(configs.get_smoke_config(arch), device="meta")
+
+
+def test_model_defaults_to_the_card():
+    """With no device the model asks for cuda:0, and raises without one."""
+    cfg = configs.get_smoke_config("llama3.2-3b")
+    if torch.cuda.is_available():
+        assert Model(cfg).device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Model(cfg)
+
+
+def test_new_packages_import_no_jax():
+    """configs, models and launch import neither jax nor the JAX package."""
+    code = ("import sys; import repro_torch.configs, repro_torch.models, "
+            "repro_torch.launch.serve; bad = [m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
