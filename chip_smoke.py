@@ -125,7 +125,34 @@ card) and against the NumPy oracles:
    ``F32_MODEL_TOL`` and the same greedy tokens, while the queries
    rotated one position late and two experts swapped fall outside it.
 
-Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6.  Phase 4 also times
+8. the recurrent families on the serving path at full width and depth,
+   phase 7's three parts for two models (seeded random weights drawn on
+   the card): recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention
+   with window 2048; bf16) at batch 2 over a prompt of 3072, past the
+   window, so that the windowed flash mask and the ring cache's roll are
+   on the path, and xlstm-125m's production profile
+   (``configs.get_optimized_config``: 6 chunked mLSTM, 6 sLSTM; f32) at
+   batch 8 over 2048 (32 batch-heads in 16 chunks of 128), 32 steps each,
+   through ``repro_torch.launch.serve``: (a) prefill and decode
+   milliseconds, tokens/s, the launch counts split at the end of the
+   prefill (8 flash attention and 18 ``rglru_scan``, then 18
+   ``rglru_scan`` a decode step and nothing else; 6 ``mlstm_chunk`` and
+   none in the decode), the busy share and each kernel's device time of
+   a profiled prefill and decode step, the host time of the sLSTM layers'
+   per-step loop, the bounds of both; (b) a second, identical run whose
+   layers capture a seeded sample of the flash, ``rglru_scan`` (prefill
+   and decode) and ``mlstm_chunk`` calls, each held against its plain
+   version at phase 5's tolerances (``rglru_scan`` bit-equal, f32 from a
+   non-zero ``h0``), and the kernel, its plain version and (flash) SDPA
+   with a band mask timed at the model's shapes; (c) a prefill and a
+   decode step in f32 on the kernels against the same run on the plain
+   versions, logits within ``P8_MODELS``'s tolerance and the same greedy
+   tokens, while the RG-LRU decode step's ``h0`` dropped, the mLSTM's
+   forget gates one step late and its prefill state handed on in the
+   empty state's scaling fall outside it.
+
+Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6,
+phase 8 after phase 7.  Phase 4 also times
 the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
 versions, and the one PyTorch call that computes the same function where
@@ -145,8 +172,8 @@ for it), ``device_ms`` the device time of its kernels alone (from
 
 The launch counts of the kernels are reset before phases 2-3 and read after
 them, reset before phase 5's main path and read after it, and reset before
-phase 7's serving run and read at the end of its prefill and after it
-(``model_path`` in the kernels line).  Any
+each serving run of phases 7 and 8 and read at the end of its prefill and
+after it (``model_path`` in the kernels line, by model).  Any
 mismatch or launch error ends the run with a non-zero code.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -295,6 +322,25 @@ CAPTURE_SAMPLE = 8
 #: routing that flips at a near-tied router logit, which reaches the last
 #: position through attention at about 1/S of its weight
 F32_MODEL_TOL = (1e-3, 1e-3)
+#: phase 8: the recurrent families at full width and depth, served as the
+#: JAX launcher would (arch, config getter, batch, prompt): recurrentgemma-2b
+#: (src/repro_torch/configs/recurrentgemma_2b.py, bf16) over a prompt past
+#: its 2048-token window, so that the windowed flash mask and the ring
+#: cache's roll are on the path, and xlstm-125m's production profile
+#: (configs.get_optimized_config: the chunked mLSTM, f32), 8 x 4 = 32
+#: batch-heads in 16 chunks of 128
+#: and (c)'s tolerance of the f32 logits on the kernels against the plain
+#: versions: recurrentgemma-2b's differ only by flash attention's sums in
+#: another order (F32_MODEL_TOL, as phase 7); xlstm-125m's sLSTM layers
+#: amplify rounding about 400-fold each at random weights over 2048 steps:
+#: on an NVIDIA H100, the embeddings one f32 step (a factor 1 + 1e-7) off
+#: moved its logits by 0.032, the plain mLSTM in chunks of 64 instead of
+#: 128 by 0.012 (phase 8 (c) prints the latter each run)
+XLSTM_MODEL_TOL = (5e-2, 1e-2)
+P8_MODELS = (("recurrentgemma-2b", "get_config", 2, 3072, F32_MODEL_TOL),
+             ("xlstm-125m", "get_optimized_config", 8, 2048,
+              XLSTM_MODEL_TOL))
+P8_STEPS = 32
 
 
 class SmokeFailure(Exception):
@@ -545,6 +591,22 @@ class LibCase:
             "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _attn_pairs(S: int, window) -> float:
+    """(query, key) pairs of causal attention over S positions, within
+    ``window`` keys when given."""
+    return float(sum(min(t + 1, window or t + 1) for t in range(S)))
+
+
+def _mlstm_ops(BH: int, S: int, dk: int, dv: int, bt: int) -> float:
+    """Operations (2 a multiply-add) of chunked gated linear attention in
+    chunks of n = min(bt, S) steps: per chunk q kᵀ and (s ∘ decay) v over
+    the causal triangle of n(n+1)/2 pairs, q C and the state update kᵀ v
+    in full."""
+    n = min(bt, S)
+    return 2.0 * ((n * (n + 1) // 2) * (dk + dv) + 2 * n * dk * dv) \
+        * BH * (S // n)
+
+
 def library_cases(dev) -> list:
     """The phase 5 calls, on inputs made on the card from a seed."""
     import torch
@@ -569,11 +631,6 @@ def library_cases(dev) -> list:
 
     def uniform(lo, hi, *shape):
         return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
-
-    def attn_pairs(S, window):
-        q = torch.arange(S, dtype=torch.float64)
-        seen = q + 1 if window is None else torch.clamp(q + 1, max=window)
-        return float(seen.sum())
 
     cases = []
 
@@ -601,7 +658,7 @@ def library_cases(dev) -> list:
                                              window=window),
             lambda: attention_ref(q, k, v, causal=True, window=window),
             BF16_ATTN_TOL if q.dtype == bf16 else 2e-5, _nbytes(q, k, v, q),
-            4 * d * B * H * attn_pairs(S, window), rate, library,
+            4 * d * B * H * _attn_pairs(S, window), rate, library,
             planted=planted))
 
     qkv = [randn(FA_B, FA_H, FA_S, FA_D, dtype=bf16) for _ in range(3)]
@@ -668,11 +725,6 @@ def library_cases(dev) -> list:
         v = randn(BH, S, dv, scale=0.5)
         lf = torch.log(uniform(0.9, 0.999, BH, S, 1))
         gi = uniform(0.1, 1.0, BH, S, 1)
-        n = bt
-        # multiply-adds of a chunk of bt steps: q k^T and (s * decay) v
-        # over the causal triangle of n(n+1)/2 pairs, q @ C and the state
-        # update k^T v in full
-        per_chunk = 2 * ((n * (n + 1) // 2) * (dk + dv) + 2 * n * dk * dv)
         case = LibCase(
             "mlstm_chunk", label,
             lambda: mlstm_chunk(q, k, v, lf, gi, bt),
@@ -680,7 +732,7 @@ def library_cases(dev) -> list:
             lambda: ml.mlstm_chunk_plain(q, k, v, lf, gi, bt=bt),
             lambda: mlstm_chunk_ref(q, k, v, lf, gi), 2e-3,
             _nbytes(q, k, v, lf, gi, v) + BH * dk * dv * 4,
-            float(per_chunk) * BH * (S // bt), F32_OPS_PER_S,
+            _mlstm_ops(BH, S, dk, dv, bt), F32_OPS_PER_S,
             retiled=(lambda: ml.mlstm_chunk_fwd(q, k, v, lf, gi, bt=32))
             if retiled else None)
         # what the three kernels execute, tiles and padding included
@@ -1282,6 +1334,34 @@ def phase6(dev, smi: str) -> dict:
     return launches
 
 
+def launch_counters() -> dict:
+    """Each library kernel's launch count, by its name in the kernels
+    line: ``(wrapper, attribute)``."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_fwd
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_fwd
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
+    return {"flash_attention": (flash_attention_fwd, "launches"),
+            "flash_attention_sm90": (flash_attention_fwd, "sm90_launches"),
+            "flash_attention_bf16": (flash_attention_fwd,
+                                     "simt_bf16_launches"),
+            "flash_attention_wide": (flash_attention_fwd, "wide_launches"),
+            "moe_gmm": (moe_gmm_fwd, "launches"),
+            "moe_gmm_sm90": (moe_gmm_fwd, "sm90_launches"),
+            "rglru_scan": (rglru_scan_fwd, "launches"),
+            "mlstm_chunk": (mlstm_chunk_fwd, "launches")}
+
+
+def reset_launches(counters: dict) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_launches(counters: dict) -> dict:
+    return {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+
+
 def _patched(obj, **attrs):
     """Context manager: ``obj``'s attributes set to ``attrs``, restored on
     exit (the harness's own patches of the layers' ops and of a model's
@@ -1305,23 +1385,31 @@ def _patched(obj, **attrs):
     return cm()
 
 
+#: the model-path kernels by a part of their device names in a profile
+MODEL_KERNEL_MARKS = {"flash_attention": "flash_fwd", "moe_gmm": "moe_gmm",
+                      "rglru_scan": "rglru_scan", "mlstm_chunk": "mlstm_"}
+
+
+def _kernel_of(name: str) -> str:
+    return next((k for k, mark in MODEL_KERNEL_MARKS.items()
+                 if mark in name), "other")
+
+
 def _by_kernel(by_name: dict) -> dict:
-    """Device ms of a profile, summed into the flash attention kernels,
-    the grouped-matmul kernels and the rest."""
-    out = {"flash_attention": 0.0, "moe_gmm": 0.0, "other": 0.0}
+    """Device ms of a profile, summed into each model-path kernel (flash
+    attention, the grouped matmul, the RG-LRU scan, the mLSTM chunk
+    kernels) and the rest."""
+    out = dict.fromkeys([*MODEL_KERNEL_MARKS, "other"], 0.0)
     for name, ms in by_name.items():
-        key = "flash_attention" if "flash_fwd" in name else \
-            "moe_gmm" if "moe_gmm" in name else "other"
-        out[key] += ms
+        out[_kernel_of(name)] += ms
     return out
 
 
 def _print_others(what: str, by_name: dict, n: int = 8) -> None:
-    """The ``n`` largest device times of a profile outside the two
-    model-path kernels."""
+    """The ``n`` largest device times of a profile outside the model-path
+    kernels."""
     rest = sorted(((ms, name) for name, ms in by_name.items()
-                   if "flash_fwd" not in name and "moe_gmm" not in name),
-                  reverse=True)
+                   if _kernel_of(name) == "other"), reverse=True)
     for ms, name in rest[:n]:
         print(f"#   {what}: {ms:.4f} ms  {name[:100]}")
 
@@ -1353,20 +1441,7 @@ def phase7(dev, smi: str) -> dict:
     from repro_torch.models import Model
     from repro_torch.models import layers
 
-    counters = {"flash_attention": (flash_attention_fwd, "launches"),
-                "flash_attention_sm90": (flash_attention_fwd,
-                                         "sm90_launches"),
-                "flash_attention_bf16": (flash_attention_fwd,
-                                         "simt_bf16_launches"),
-                "moe_gmm": (moe_gmm_fwd, "launches"),
-                "moe_gmm_sm90": (moe_gmm_fwd, "sm90_launches")}
-
-    def reset():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-
-    def read():
-        return {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+    counters = launch_counters()
 
     cfg = configs.get_config(SERVE_ARCH)
     B, S, steps = SERVE_B, SERVE_S, SERVE_STEPS
@@ -1392,15 +1467,15 @@ def phase7(dev, smi: str) -> dict:
     def prefill_and_count(*a, **kw):
         out = prefill(*a, **kw)
         torch.cuda.synchronize()
-        after_prefill.update(read())
+        after_prefill.update(read_launches(counters))
         return out
 
-    reset()
+    reset_launches(counters)
     with _patched(model, prefill=prefill_and_count):
         run = serve.serve(cfg, batch=B, prompt_len=S, steps=steps,
                           model=model, seed=0)
     torch.cuda.synchronize()
-    total = read()
+    total = read_launches(counters)
     decode_counts = {n: total[n] - after_prefill[n] for n in total}
     tokens = run["tokens"]
     check(tuple(tokens.shape) == (B, steps)
@@ -1647,9 +1722,9 @@ def phase7(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         return logits, first, step[:, -1].argmax(-1)[:, None]
 
-    reset()
+    reset_launches(counters)
     logits_k, first_k, next_k = f32_run()
-    f32_counts = read()
+    f32_counts = read_launches(counters)
     check(f32_counts["flash_attention"] == cfg.n_layers
           and f32_counts["moe_gmm"] == 2 * 3 * cfg.n_layers
           and f32_counts["flash_attention_sm90"] == 0
@@ -1728,6 +1803,462 @@ def phase7(dev, smi: str) -> dict:
                     "launches_decode": decode_counts["moe_gmm"],
                     "max_abs_err_f32_logits": err},
     }
+
+def _model_bounds(model, B: int, S: int, steps: int, caches) -> tuple:
+    """(prefill bound ms, by, decode-step bound ms, by, text): the prefill
+    by every weight's product over B·S tokens (the blocks' matrices, the
+    conv taps and the sLSTM's recurrent weights a multiply-add each a
+    token), attention over its pairs, the mLSTM cores and the last
+    position's logits, at the peak for the weights' type, or its weights'
+    bytes; a decode step by the bytes of every weight, the k/v caches it
+    reads and the recurrent states it reads and writes."""
+    import torch
+    from repro_torch.configs.base import MLSTM, SWA
+    cfg = model.cfg
+    kinds = [s.mixer for s in cfg.blocks()]
+    T = B * S
+    dense = sum(p.numel() for blk in model.blocks for p in blk.parameters()
+                if p.dim() >= 2)
+    proj_ops = 2.0 * T * dense
+    attn_ops = 4.0 * cfg.hd * B * cfg.n_heads * _attn_pairs(S, cfg.window) \
+        * kinds.count(SWA)
+    hd_m = 2 * cfg.d_model // cfg.n_heads
+    core_ops = _mlstm_ops(B * cfg.n_heads, S, hd_m, hd_m + 1,
+                          cfg.mlstm_chunk) * kinds.count(MLSTM) \
+        if cfg.mlstm_impl == "chunked" else \
+        4.0 * T * cfg.n_heads * hd_m * hd_m * kinds.count(MLSTM)
+    logit_ops = 2.0 * B * cfg.d_model * cfg.padded_vocab
+    ops = proj_ops + attn_ops + core_ops + logit_ops
+    rate = BF16_OPS_PER_S if model.embed.dtype == torch.bfloat16 \
+        else F32_OPS_PER_S
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    t_ops, t_w = ops / rate, w_bytes / HBM_BYTES_PER_S
+    state_bytes = sum(t.numel() * t.element_size()
+                      * (1 if n in ("k", "v") else 2)
+                      for c in caches for n, t in c.items())
+    decode_bytes = w_bytes + state_bytes
+    text = (f"prefill {ops:.6g} operations (weights {proj_ops:.6g}, "
+            f"attention {attn_ops:.6g}, mLSTM cores {core_ops:.6g}, logits "
+            f"{logit_ops:.6g}) at {rate / 1e12:.0f} TFLOP/s, weights "
+            f"{w_bytes} B; decode step {decode_bytes} B (weights "
+            f"{w_bytes}, caches and states {state_bytes}) at 3.35 TB/s")
+    return (max(t_ops, t_w) * 1e3, "operations" if t_ops >= t_w else "bytes",
+            decode_bytes / HBM_BYTES_PER_S * 1e3, "bytes", text)
+
+
+def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
+                  model_tol: tuple, steps: int) -> dict:
+    """Phase 8 for one recurrent model: (a) served through
+    ``repro_torch.launch.serve``, (b) captured kernel calls against their
+    plain versions, (c) the whole model on the kernels against the plain
+    versions in f32.  Returns the kernels line's entries by kernel name."""
+    import dataclasses
+    import random
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import MLSTM, RGLRU, SLSTM, SWA
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    from repro_torch.kernels.mlstm_chunk.kernel import (mlstm_chunk_fwd,
+                                                        mlstm_chunk_plain)
+    from repro_torch.kernels.rglru_scan.kernel import (rglru_scan_fwd,
+                                                       rglru_scan_plain)
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, layers
+
+    counters = launch_counters()
+    flash_routes = ("flash_attention", "flash_attention_sm90",
+                    "flash_attention_bf16")
+
+    cfg = getattr(configs, getter)(arch)
+    kinds = [s.mixer for s in cfg.blocks()]
+    n_rg, n_swa, n_sl = (kinds.count(k) for k in (RGLRU, SWA, SLSTM))
+    n_ml = kinds.count(MLSTM) if cfg.mlstm_impl == "chunked" else 0
+    ops = {"flash": layers.flash_attention, "rglru": layers.rglru_scan,
+           "mlstm": layers.mlstm_chunk}
+    tag = f"phase 8 {arch}"
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                  device=dev)
+    torch.cuda.synchronize()
+    print(f"# {tag}: {cfg.n_layers} layers at full width "
+          f"({kinds.count(RGLRU)} RG-LRU, {n_swa} local attention, "
+          f"{kinds.count(MLSTM)} mLSTM ({cfg.mlstm_impl}), {n_sl} sLSTM), "
+          f"{sum(p.numel() for p in model.parameters())} parameters in "
+          f"{model.embed.dtype} on the card, drawn in "
+          f"{time.perf_counter() - t0:.2f} s; batch {B}, prompt {S}, "
+          f"{steps} steps on {smi}")
+    serve.serve(cfg, batch=B, prompt_len=S, steps=2, model=model, seed=1)
+    torch.cuda.synchronize()
+
+    # -- (a) serving: counts split at the end of the prefill ----------------
+    prefill = model.prefill
+    after_prefill = {}
+
+    def prefill_and_count(*a, **kw):
+        out = prefill(*a, **kw)
+        torch.cuda.synchronize()
+        after_prefill.update(read_launches(counters))
+        return out
+
+    reset_launches(counters)
+    with _patched(model, prefill=prefill_and_count):
+        run = serve.serve(cfg, batch=B, prompt_len=S, steps=steps,
+                          model=model, seed=0)
+    torch.cuda.synchronize()
+    total = read_launches(counters)
+    decode = {n: total[n] - after_prefill[n] for n in total}
+    tokens = run["tokens"]
+    check(tuple(tokens.shape) == (B, steps) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.padded_vocab,
+          f"{tag}: generated tokens {tuple(tokens.shape)} out of range")
+    flash_prefill = sum(after_prefill[n] for n in flash_routes)
+    check(flash_prefill == n_swa and after_prefill["rglru_scan"] == n_rg
+          and after_prefill["mlstm_chunk"] == n_ml,
+          f"{tag} prefill: expected {n_swa} flash, {n_rg} rglru_scan and "
+          f"{n_ml} mlstm_chunk launches, got {after_prefill}")
+    check(decode["rglru_scan"] == n_rg * (steps - 1)
+          and sum(decode.values()) == decode["rglru_scan"],
+          f"{tag} decode: expected {n_rg * (steps - 1)} rglru_scan launches "
+          f"and no other, got {decode}")
+    route = next((n for n in flash_routes if after_prefill[n]), None)
+    print(f"{tag} (a): served {B} prompts of {S} tokens, {steps} tokens "
+          f"each: prefill {run['prefill_ms']:.3f} ms, decode "
+          f"{run['decode_ms_per_step']:.3f} ms a step, "
+          f"{run['tokens_per_s']:.1f} tokens/s on {smi}")
+    print(f"# {tag} launches: prefill {after_prefill}; {steps - 1} decode "
+          f"steps {decode} (flash route: {route})")
+
+    caches, batch = run["caches"], run["batch"]
+    tok = tokens[:, -1:].to(dev)
+
+    def go_prefill():
+        return model.prefill(batch, cache_len=S + steps)
+
+    def go_decode():
+        return model.decode_step(tok, caches, S + steps - 1)
+
+    raw = {"prefill": profile_launch(go_prefill),
+           "decode step": profile_launch(go_decode)}
+    prof = {w: _by_kernel(r) for w, r in raw.items()}
+    shares = {}
+    for what, wall in (("prefill", run["prefill_ms"]),
+                       ("decode step", run["decode_ms_per_step"])):
+        p = prof[what]
+        busy = sum(p.values())
+        shares[what] = {k: ms / wall for k, ms in p.items()}
+        parts = ", ".join(f"{k} {ms:.4f} ms ({ms / wall:.4f})"
+                          for k, ms in p.items() if ms)
+        print(f"# {tag} {what}: device busy {busy:.4f} ms of {wall:.4f} ms "
+              f"(busy share {busy / wall:.4f}): {parts} on {smi}")
+        _print_others(f"{arch} {what}", raw[what], 6)
+
+    slstm_ms = None
+    if n_sl:   # the sLSTM's per-step loop in the prefill: host-bound
+        op_slstm, spent = layers.slstm, []
+
+        def timed_slstm(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = op_slstm(*a, **kw)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t)
+            return out
+
+        with _patched(layers, slstm=timed_slstm):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            go_prefill()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        slstm_ms = sum(spent) * 1e3
+        print(f"# {tag} prefill: its {len(spent)} sLSTM layers take "
+              f"{slstm_ms:.3f} ms of a {wall:.3f} ms prefill ({S} steps "
+              f"each, a per-step loop of plain ops: host-bound) on {smi}")
+
+    # -- (b) a second run whose layers capture a seeded sample --------------
+    rnd = random.Random(0)
+    pools = {"flash": n_swa, "rglru": n_rg, "drglru": n_rg * (steps - 1),
+             "mlstm": n_ml}
+    pick = {k: set(rnd.sample(range(n), min(CAPTURE_SAMPLE, n)))
+            for k, n in pools.items()}
+    seen = dict.fromkeys(pools, 0)
+    captured = {k: [] for k in pools}
+
+    def copies(ts):   # the layers go on to write the caches in place
+        return tuple(t.clone() if isinstance(t, torch.Tensor) else t
+                     for t in ts)
+
+    def keep(kind, args, out):
+        if seen[kind] in pick[kind]:
+            captured[kind].append((copies(args), out if isinstance(
+                out, torch.Tensor) else copies(out)))
+        seen[kind] += 1
+
+    def flash_capture(q, k, v, causal, window):
+        out = ops["flash"](q, k, v, causal, window)
+        keep("flash", (q, k, v, causal, window), out)
+        return out
+
+    def rglru_capture(a, x, h0):
+        out = ops["rglru"](a, x, h0)
+        keep("drglru" if a.shape[1] == 1 else "rglru", (a, x, h0), out)
+        return out
+
+    def mlstm_capture(q, k, v, lf, gi, bt):
+        out = ops["mlstm"](q, k, v, lf, gi, bt)
+        keep("mlstm", (q, k, v, lf, gi, bt), out)
+        return out
+
+    with _patched(layers, flash_attention=flash_capture,
+                  rglru_scan=rglru_capture, mlstm_chunk=mlstm_capture):
+        again = serve.serve(cfg, batch=B, prompt_len=S, steps=steps,
+                            model=model, seed=0)
+    check(torch.equal(again["tokens"], tokens),
+          f"{tag} (b): a second run generated other tokens")
+    del again
+    check(all(len(captured[k]) == len(pick[k]) for k in pools),
+          f"{tag} (b): capture missed calls: "
+          f"{ {k: len(v) for k, v in captured.items()} }")
+
+    pre_bound, pre_by, dec_bound, dec_by, text = _model_bounds(
+        model, B, S, steps, caches)
+    print(f"# {tag} bounds: prefill {pre_bound:.4f} ms by {pre_by}, decode "
+          f"step {dec_bound:.4f} ms by {dec_by} ({text}); measured "
+          f"{run['prefill_ms'] / pre_bound:.2f}x and "
+          f"{run['decode_ms_per_step'] / dec_bound:.2f}x the bounds on {smi}")
+
+    errs, done = {}, []
+    for (q, k, v, causal, window), out in captured["flash"]:
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        tol = BF16_ATTN_TOL if q.dtype == torch.bfloat16 else 2e-5
+        check(_close(out, want, tol),
+              f"{tag} (b): flash attention {tuple(q.shape)} != plain")
+        errs["flash"] = max(errs.get("flash", 0.0), _err(out, want))
+    for kind in ("rglru", "drglru"):
+        for (a, x, h0), (h, hT) in captured[kind]:
+            ph, phT = rglru_scan_plain(a, x, h0)
+            check(torch.equal(h, ph) and torch.equal(hT, phT),
+                  f"{tag} (b): rglru_scan {tuple(a.shape)} not bit-equal "
+                  "to its plain version")
+            errs[kind] = 0.0
+    norm = 0.0
+    for (q, k, v, lf, gi, bt), (y, c) in captured["mlstm"]:
+        py, pc = mlstm_chunk_plain(q, k, v, lf, gi, bt=bt)
+        check(_close(y, py, 2e-3) and _close(c, pc, 2e-3),
+              f"{tag} (b): mlstm_chunk {tuple(v.shape)} != plain")
+        errs["mlstm"] = max(errs.get("mlstm", 0.0), _err(y, py),
+                            _err(c, pc))
+        hd = q.shape[-1]
+        norm = max(norm, float(y[..., hd].abs().max()))
+    for kind, calls in captured.items():
+        if calls:
+            done.append(f"{len(calls)} {kind} calls "
+                        f"{tuple(calls[0][0][0].shape)} (max abs err "
+                        f"{errs[kind]:.4g})")
+    print(f"{tag} (b): {'; '.join(done)} within phase 5's tolerances of "
+          f"the plain versions{' (rglru_scan bit-equal)' if n_rg else ''} "
+          f"on {smi}")
+    if captured["mlstm"]:
+        print(f"# {tag} (b): the normalizer column: max |q·n| {norm:.4g} "
+              "(h = q·C / max(|q·n|, 1))")
+
+    # kernel, plain version and library call at the model's shapes
+    timing = {}
+    if captured["flash"]:
+        (q, k, v, _, window), _ = captured["flash"][0]
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        Bq, H, Sq, d = qc.shape
+        pos = torch.arange(Sq, device=dev)
+        band = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - (window or Sq))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        timing[route] = (
+            lambda: flash_attention_fwd(qc, kc, vc, causal=True,
+                                        window=window),
+            lambda: flash_attention_plain(qc, kc, vc, causal=True,
+                                          window=window),
+            lambda: sdpa(qc, kc, vc, attn_mask=band), _nbytes(qc, kc, vc, qc),
+            4.0 * d * Bq * H * _attn_pairs(Sq, window),
+            BF16_OPS_PER_S if qc.dtype == torch.bfloat16
+            else F32_OPS_PER_S)
+    for kind, name in (("rglru", "rglru_scan"),
+                       ("drglru", "rglru_scan decode")):
+        if captured[kind]:
+            (a, x, h0), _ = captured[kind][0]
+            timing[name] = (
+                lambda a=a, x=x, h0=h0: rglru_scan_fwd(a, x, h0),
+                lambda a=a, x=x, h0=h0: rglru_scan_plain(a, x, h0), None,
+                _nbytes(a, x, a, h0, h0), 2.0 * a.numel(), F32_OPS_PER_S)
+    if captured["mlstm"]:
+        (q, k, v, lf, gi, bt), _ = captured["mlstm"][0]
+        BH, Sm, dk = q.shape
+        timing["mlstm_chunk"] = (
+            lambda: mlstm_chunk_fwd(q, k, v, lf, gi, bt=bt),
+            lambda: mlstm_chunk_plain(q, k, v, lf, gi, bt=bt), None,
+            _nbytes(q, k, v, lf, gi, v) + BH * dk * v.shape[-1] * 4,
+            _mlstm_ops(BH, Sm, dk, v.shape[-1], bt), F32_OPS_PER_S)
+    times = {}
+    for name, (fwd, plain, lib, nbytes, n_ops, rate) in timing.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / rate
+        times[name] = {
+            "ms": time_ms(fwd, 10), "plain_ms": time_ms(plain, 3),
+            "library_ms": time_ms(lib, 10) if lib else None,
+            "device_ms": sum(profile_launch(fwd).values()) or None,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        tm = times[name]
+        lib_txt = "none" if lib is None else f"{tm['library_ms']:.4f} ms"
+        print(f"# {tag} {name} at the model's shape: kernel {tm['ms']:.4f} "
+              f"ms (device {tm['device_ms']} ms), plain {tm['plain_ms']:.4f} "
+              f"ms, library call {lib_txt}, bound {tm['bound_ms']:.4g} ms "
+              f"by {tm['bound_by']} on {smi}")
+    del captured, run, caches
+
+    # -- (c) the whole model in f32: kernels against plain versions ---------
+    if model.embed.dtype != torch.float32:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        m32 = Model(cfg32, device="meta")
+        m32.load_state_dict({n: t.float()
+                             for n, t in model.state_dict().items()},
+                            assign=True)
+        del model
+        torch.cuda.empty_cache()
+    else:
+        m32 = model
+        del model
+
+    def f32_run():
+        logits, cache = m32.prefill(batch, cache_len=S + 1)
+        first = logits[:, -1].argmax(-1)[:, None]
+        step, _ = m32.decode_step(first, cache, S)
+        torch.cuda.synchronize()
+        return torch.cat([logits, step], 1), first, \
+            step[:, -1].argmax(-1)[:, None]
+
+    reset_launches(counters)
+    logits_k, first_k, next_k = f32_run()
+    f32_counts = read_launches(counters)
+    check(f32_counts["flash_attention"] == n_swa
+          and f32_counts["rglru_scan"] == 2 * n_rg
+          and f32_counts["mlstm_chunk"] == n_ml,
+          f"{tag} (c): the f32 prefill and decode step missed the f32 "
+          f"kernels: {f32_counts}")
+    plain_ops = dict(
+        flash_attention=lambda q, k, v, causal, window:
+            flash_attention_plain(q, k, v, causal=causal, window=window),
+        rglru_scan=rglru_scan_plain,
+        mlstm_chunk=lambda q, k, v, lf, gi, bt:
+            mlstm_chunk_plain(q, k, v, lf, gi, bt=bt))
+    with _patched(layers, **plain_ops):
+        logits_p, first_p, next_p = f32_run()
+    err = _err(logits_k, logits_p)
+    check(_close(logits_k, logits_p, model_tol),
+          f"{tag} (c): f32 logits on the kernels differ from the plain "
+          f"versions' by {err:.4g}, past {_tol_text(model_tol)}")
+    check(torch.equal(first_k, first_p) and torch.equal(next_k, next_p),
+          f"{tag} (c): greedy tokens on the kernels differ from the plain "
+          "versions'")
+    top2 = torch.topk(logits_p[:, -1], 2).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    # planted errors: the RG-LRU decode step from h0 = 0 (the carried
+    # state dropped); the mLSTM's forget gates one step late in the
+    # kernel's input; the chunked prefill's mLSTM state handed to the
+    # decode in the wrong scaling (m = -1e30, the empty state's, instead
+    # of 0: the decode then drops it)
+    planted = {}
+    if n_rg:
+        planted["the RG-LRU decode step's h0 dropped"] = dict(
+            rglru_scan=lambda a, x, h0: ops["rglru"](a, x,
+                                                     torch.zeros_like(h0)))
+    if n_ml:
+        planted["the mLSTM forget gates one step late"] = dict(
+            mlstm_chunk=lambda q, k, v, lf, gi, bt: ops["mlstm"](
+                q, k, v, torch.roll(lf, 1, 1), gi, bt))
+        chunked = layers.mlstm_chunked
+
+        def empty_scaling(*a, **kw):
+            y, st = chunked(*a, **kw)
+            return y, dict(st, m=torch.full_like(st["m"], -1e30))
+        planted["the mLSTM prefill state handed on with m = -1e30"] = dict(
+            mlstm_chunked=empty_scaling)
+    seen_err = []
+    for what, patch in planted.items():
+        with _patched(layers, **patch):
+            bad, _, _ = f32_run()
+        check(not _close(bad, logits_p, model_tol),
+              f"{tag} (c): tolerance {_tol_text(model_tol)} misses "
+              f"{what}")
+        seen_err.append(f"{what}: max abs err {_err(bad, logits_p):.4g}")
+    if n_ml:   # the rounding floor: the plain mLSTM in chunks of 64
+        with _patched(layers, **dict(plain_ops, mlstm_chunk=lambda q, k, v,
+                                     lf, gi, bt: mlstm_chunk_plain(
+                                         q, k, v, lf, gi, bt=64))):
+            other, _, _ = f32_run()
+        print(f"# {tag} (c): the plain versions in chunks of 64 instead of "
+              f"{cfg.mlstm_chunk} (the same function, another rounding "
+              f"order) move the logits by {_err(other, logits_p):.4g}")
+    if n_ml:   # not a check: at these weights |q·n| < 1 and the clamp hides
+        def ones_zeroed(q, k, v, lf, gi, bt):
+            v = v.clone()
+            v[..., q.shape[-1]] = 0
+            return ops["mlstm"](q, k, v, lf, gi, bt)
+        with _patched(layers, mlstm_chunk=ones_zeroed):
+            bad, _, _ = f32_run()
+        print(f"# {tag} (c): the normalizer's ones column zeroed moves the "
+              f"logits by {_err(bad, logits_p):.4g} (max |q·n| of the "
+              f"captured calls {norm:.4g}: max(|q·n|, 1) is 1 there)")
+    print(f"{tag} (c): f32 prefill and decode step on the kernels "
+          f"({f32_counts}) within {_tol_text(model_tol)} of the plain "
+          f"versions (max abs err {err:.4g}, logits up to "
+          f"{float(logits_p.abs().max()):.4g}); greedy tokens identical "
+          f"(smallest top-2 margin {margin:.4g}); refuses "
+          f"{'; '.join(seen_err)}; on {smi}")
+    del m32
+    torch.cuda.empty_cache()
+
+    out = {}
+    if route:
+        out[route] = dict(
+            times[route], launches_prefill=after_prefill[route],
+            launches_decode=decode[route], max_abs_err=errs["flash"],
+            device_ms_prefill=prof["prefill"]["flash_attention"],
+            share_prefill=shares["prefill"]["flash_attention"])
+        out.setdefault("flash_attention", {}).update(
+            launches_f32_prefill=f32_counts["flash_attention"],
+            max_abs_err_f32_logits=err)
+    if n_rg:
+        out["rglru_scan"] = dict(
+            times["rglru_scan"], decode=times["rglru_scan decode"],
+            launches_prefill=after_prefill["rglru_scan"],
+            launches_decode=decode["rglru_scan"], max_abs_err=0.0,
+            device_ms_prefill=prof["prefill"]["rglru_scan"],
+            share_prefill=shares["prefill"]["rglru_scan"],
+            device_ms_decode_step=prof["decode step"]["rglru_scan"],
+            share_decode_step=shares["decode step"]["rglru_scan"],
+            launches_f32_prefill_and_step=f32_counts["rglru_scan"],
+            max_abs_err_f32_logits=err)
+    if n_ml:
+        out["mlstm_chunk"] = dict(
+            times["mlstm_chunk"],
+            launches_prefill=after_prefill["mlstm_chunk"],
+            launches_decode=decode["mlstm_chunk"],
+            max_abs_err=errs["mlstm"],
+            device_ms_prefill=prof["prefill"]["mlstm_chunk"],
+            share_prefill=shares["prefill"]["mlstm_chunk"],
+            slstm_host_ms_prefill=slstm_ms,
+            launches_f32_prefill_and_step=f32_counts["mlstm_chunk"],
+            max_abs_err_f32_logits=err)
+    return out
+
+
+def phase8(dev, smi: str) -> dict:
+    """Phase 8: the recurrent families on the model's serving path at full
+    width and depth (``P8_MODELS``).  Returns the kernels line's entries,
+    by model and kernel name."""
+    return {m[0]: _phase8_model(dev, smi, *m, P8_STEPS) for m in P8_MODELS}
+
 
 def main() -> int:
     if not (SRC / "repro_torch" / "core").is_dir():
@@ -1938,34 +2469,17 @@ def main() -> int:
     vadd_err = max_abs_err(vout["C"], pvout["C"])
 
     # -- phase 5: the kernel library at full width ----------------------------
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.hetir_gen import het_kernel
     from repro_torch.kernels.hetir_gen.ref import het_kernel_ref
-    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_fwd
-    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd
-    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
     torch.backends.cuda.matmul.allow_tf32 = False   # the oracles in IEEE f32
     torch.backends.cudnn.allow_tf32 = False
-    # each kernel's launch count: (wrapper, attribute)
-    counters = {"flash_attention": (flash_attention_fwd, "launches"),
-                "flash_attention_sm90": (flash_attention_fwd,
-                                         "sm90_launches"),
-                "flash_attention_bf16": (flash_attention_fwd,
-                                         "simt_bf16_launches"),
-                "flash_attention_wide": (flash_attention_fwd,
-                                         "wide_launches"),
-                "moe_gmm": (moe_gmm_fwd, "launches"),
-                "moe_gmm_sm90": (moe_gmm_fwd, "sm90_launches"),
-                "rglru_scan": (rglru_scan_fwd, "launches"),
-                "mlstm_chunk": (mlstm_chunk_fwd, "launches")}
+    counters = launch_counters()
     cases = library_cases(dev)
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    reset_launches(counters)
     for c in cases:
         c.out = c.op()
     torch.cuda.synchronize()
-    lib_launches = {n: getattr(fn, attr)
-                    for n, (fn, attr) in counters.items()}
+    lib_launches = read_launches(counters)
     check(all(v > 0 for v in lib_launches.values()),
           f"phase 5 main path missed a kernel: launches {lib_launches}")
     for c in cases:
@@ -2131,9 +2645,13 @@ def main() -> int:
                                 for part, c in p6.items()}
     # -- phase 7: the model stack's serving path at full width ----------------
     p7 = phase7(dev, smi)
+    # -- phase 8: the recurrent families on the serving path ----------------
+    p8 = dict(phase8(dev, smi), **{SERVE_ARCH: p7})
     for k in kernels:
-        if k["name"] in p7:
-            k["model_path"] = p7[k["name"]]
+        path = {arch: res[k["name"]] for arch, res in p8.items()
+                if k["name"] in res}
+        if path:
+            k["model_path"] = path
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """Model primitives of the serving path: norms, RoPE, GQA attention
-(full/windowed prefill and one-token decode), SwiGLU/GELU FFN and the
-sort-based MoE.  Port of ``src/repro/models/layers.py`` for the block kinds
-``ATTN``/``SWA`` + ``DENSE_FFN``/``MOE_FFN``.
+(full/windowed prefill and one-token decode), SwiGLU/GELU FFN, the
+sort-based MoE, and the recurrent mixers RG-LRU, mLSTM and sLSTM.  Port
+of ``src/repro/models/layers.py`` for the decoder block kinds
+``ATTN``/``SWA``/``RGLRU``/``MLSTM``/``SLSTM`` + ``DENSE_FFN``/``MOE_FFN``.
 
 Every function is a plain function over tensors and a parameter mapping
 ``p`` (name -> tensor, in the JAX package's layouts: ``x @ p["wq"]``); the
-``nn.Module`` owners live in :mod:`repro_torch.models.model`.  Two
+``nn.Module`` owners live in :mod:`repro_torch.models.model`.  Four
 products go through the port's hand-written kernels, by their public ops:
 
 * the prefill's self-attention core: :func:`repro_torch.kernels.
@@ -14,14 +15,19 @@ products go through the port's hand-written kernels, by their public ops:
   f32; on CPU tensors the plain version);
 * every expert product of the MoE: :func:`repro_torch.kernels.moe_gmm` on
   the capacity buffer ``[E, C, D] @ [E, D, F]`` with ``counts[e]`` the rows
-  kept for expert ``e``.
+  kept for expert ``e``;
+* the RG-LRU recurrence ``h = a·h + b·u``, prefill and decode alike:
+  :func:`repro_torch.kernels.rglru_scan` on ``[B, S, d_rnn]`` f32;
+* the chunked mLSTM (``mlstm_impl="chunked"``, ``S > 1``):
+  :func:`repro_torch.kernels.mlstm_chunk` on ``[B·H, S, hd]``, its
+  normalizer carried by a column of ones in ``v`` (:func:`mlstm_chunked`).
 
-The decode's attention against the cache stays plain torch ops: the JAX
-package computes it outside any Pallas kernel, and the flash kernel
-assumes aligned q and k positions.
+The decode's attention against the cache, the per-step mLSTM and the
+sLSTM stay plain torch ops: the JAX package computes them outside any
+Pallas kernel (the attention kernel assumes aligned q and k positions).
 
-Not in this slice: RG-LRU, mLSTM, sLSTM and cross-attention (the model
-refuses those blocks, :mod:`repro_torch.models.model`).
+Not in this slice: cross-attention (the model refuses those blocks,
+:mod:`repro_torch.models.model`).
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels import flash_attention, moe_gmm
+from ..kernels import flash_attention, mlstm_chunk, moe_gmm, rglru_scan
 
 Params = Mapping[str, torch.Tensor]
 
@@ -343,3 +349,273 @@ def moe_ffn_grouped(x, p: Params, cfg: ModelConfig):
     out = torch.zeros((B * S, D), dtype=contrib.dtype, device=x.device)
     out.index_add_(0, (brow * S + tok).reshape(-1), contrib.reshape(-1, D))
     return out.reshape(B, S, D).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / recurrentgemma)
+# ---------------------------------------------------------------------------
+
+
+def init_rglru(cfg: ModelConfig, dtype, device, generator
+               ) -> Dict[str, torch.Tensor]:
+    d, dr, cw = cfg.d_model, cfg.d_rnn or cfg.d_model, cfg.conv_width
+    s, sr = 1.0 / math.sqrt(d), 1.0 / math.sqrt(dr)
+    p = {name: normal(shape, scale, dtype, device, generator)
+         for name, shape, scale in (("w_in_rec", (d, dr), s),
+                                    ("w_in_gate", (d, dr), s),
+                                    ("w_out", (dr, d), sr),
+                                    ("conv_w", (cw, dr), 0.1),
+                                    ("w_r", (dr, dr), sr),
+                                    ("w_i", (dr, dr), sr))}
+    # sigmoid(4) ≈ 0.98: a slow decay
+    p["lam"] = torch.full((dr,), 4.0, dtype=dtype, device=device)
+    return p
+
+
+_RG_C = 8.0
+
+
+def _log_sigmoid(x):
+    return -F.softplus(-x)            # the JAX layers' -softplus(-x)
+
+
+def _rglru_gates(u, p: Params):
+    """The decay ``a`` and input scale ``b`` of each step, f32 [B,S,dr]."""
+    r = torch.sigmoid((u @ p["w_r"]).float())
+    i = torch.sigmoid((u @ p["w_i"]).float())
+    log_a = _RG_C * r * _log_sigmoid(p["lam"].float())
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    return a, beta * i
+
+
+def _causal_conv(u, w, state=None):
+    """Depthwise causal conv along time.  u: [B,S,dr], w: [cw,dr]; state:
+    the carried tail [B,cw-1,dr] of the steps before (zeros when None).
+    Returns (out [B,S,dr], the new tail: the last cw-1 steps of
+    ``state`` followed by ``u``)."""
+    B, S, dr = u.shape
+    cw = w.shape[0]
+    pad = torch.zeros((B, cw - 1, dr), dtype=u.dtype, device=u.device) \
+        if state is None else state.to(u.dtype)
+    full = torch.cat([pad, u], dim=1)
+    out = sum(full[:, i:i + S] * w[i] for i in range(cw))
+    return out, full[:, full.shape[1] - (cw - 1):]
+
+
+def rglru(x, p: Params, cfg: ModelConfig, state=None):
+    """x: [B,S,D] -> (y [B,S,D], new state).  state: {"h": [B,dr] f32,
+    "conv": [B,cw-1,dr]}, zeros when None.  One function for the prefill
+    and the decode (S = 1): both run the recurrence on the RG-LRU scan
+    kernel, from ``h0`` zeros or the state's ``h``."""
+    B, S, D = x.shape
+    u = x @ p["w_in_rec"]
+    gate = _gelu(x @ p["w_in_gate"])
+    u, new_conv = _causal_conv(u, p["conv_w"],
+                               None if state is None else state["conv"])
+    a, b = _rglru_gates(u, p)                    # [B,S,dr] f32
+    bu = b * u.float()
+    h0 = torch.zeros((B, u.shape[-1]), dtype=torch.float32,
+                     device=x.device) if state is None \
+        else state["h"].float()
+    hs, h_final = rglru_scan(a, bu, h0)
+    y = (hs.to(x.dtype) * gate) @ p["w_out"]
+    return y, {"h": h_final, "conv": new_conv}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix memory)
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(cfg: ModelConfig, dtype, device, generator
+               ) -> Dict[str, torch.Tensor]:
+    d, H = cfg.d_model, cfg.n_heads
+    de = 2 * d
+    s = 1.0 / math.sqrt(d)
+    return {name: normal(shape, scale, dtype, device, generator)
+            for name, shape, scale in (("w_qkv", (d, 3 * de), s),
+                                       ("w_o", (de, d), 1 / math.sqrt(de)),
+                                       ("w_if", (d, 2 * H), s),
+                                       ("w_skip", (d, de), s))}
+
+
+def _mlstm_inputs(x, p: Params, cfg: ModelConfig):
+    """q, k (scaled by 1/√hd), v [B,S,H,hd] and the log input and forget
+    gates [B,S,H] f32."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    hd = 2 * D // H
+    q, k, v = (x @ p["w_qkv"]).split(2 * D, dim=-1)
+    q = q.reshape(B, S, H, hd) / math.sqrt(hd)
+    k = k.reshape(B, S, H, hd) / math.sqrt(hd)
+    v = v.reshape(B, S, H, hd)
+    gates = (x @ p["w_if"]).float().reshape(B, S, 2, H)
+    return q, k, v, _log_sigmoid(gates[:, :, 0]), _log_sigmoid(gates[:, :, 1])
+
+
+def _mlstm_out(x, h, p: Params):
+    """The block's output from the cell's h [B,S,2D]."""
+    return (h.to(x.dtype) * F.silu(x @ p["w_skip"])) @ p["w_o"]
+
+
+def mlstm(x, p: Params, cfg: ModelConfig, state=None):
+    """Stabilized mLSTM.  state: {"C": [B,H,hd,hd], "n": [B,H,hd], "m":
+    [B,H]}, f32.  The chunked form for full sequences when
+    ``cfg.mlstm_impl == "chunked"``; the decode (S = 1) stays per-step."""
+    if cfg.mlstm_impl == "chunked" and x.shape[1] > 1:
+        return mlstm_chunked(x, p, cfg, state, chunk=cfg.mlstm_chunk)
+    return _mlstm_scan(x, p, cfg, state)
+
+
+def _mlstm_state(state, B: int, H: int, hd: int, device):
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=device)
+        return (torch.zeros((B, H, hd, hd), **f32),
+                torch.zeros((B, H, hd), **f32),
+                torch.full((B, H), -1e30, **f32))
+    return tuple(state[k].float() for k in ("C", "n", "m"))
+
+
+def _mlstm_scan(x, p: Params, cfg: ModelConfig, state=None):
+    """The per-step recurrence in plain tensor ops, the JAX ``lax.scan``
+    step for step."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    hd = 2 * D // H
+    q, k, v, log_i, log_f = _mlstm_inputs(x, p, cfg)
+    C, n, m = _mlstm_state(state, B, H, hd, x.device)
+    hs = []
+    for t in range(S):
+        q_t, k_t, v_t = q[:, t].float(), k[:, t].float(), v[:, t].float()
+        li, lf = log_i[:, t], log_f[:, t]                # [B,H]
+        m_new = torch.maximum(lf + m, li)
+        f_sc = torch.exp(lf + m - m_new)[..., None]
+        i_sc = torch.exp(li - m_new)[..., None]
+        C = f_sc[..., None] * C + i_sc[..., None] * (
+            k_t[..., :, None] * v_t[..., None, :])
+        n = f_sc * n + i_sc * k_t
+        num = torch.einsum("bhk,bhkv->bhv", q_t, C)
+        den = torch.einsum("bhk,bhk->bh", q_t, n).abs()
+        hs.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
+        m = m_new
+    h = torch.stack(hs, dim=1).reshape(B, S, 2 * D)
+    return _mlstm_out(x, h, p), {"C": C, "n": n, "m": m}
+
+
+def _ones_width(hd: int) -> int:
+    """Columns of ``v`` with the normalizer's column of ones: ``hd + 1``
+    rounded up to a multiple of 4, so that the kernels load its rows in
+    16-byte copies (the columns past the ones are zeros, cut off)."""
+    return (hd + 1 + 3) // 4 * 4
+
+
+def mlstm_chunked(x, p: Params, cfg: ModelConfig, state=None,
+                  chunk: int = 128):
+    """Chunked mLSTM on the ``mlstm_chunk`` kernel: the same function as
+    :func:`_mlstm_scan` with the matrix state crossing memory once per
+    chunk of ``min(chunk, S)`` steps (``S`` a multiple of it, as in the
+    JAX package).
+
+    The kernel is the *unstabilized* core ``C_t = f_t C_{t-1} + i_t k_t
+    v_tᵀ``, ``y_t = q_t C_t``, fed ``lf = log σ(f)`` and ``gi = σ(i)``.
+    The normalizer ``n_t = f_t n_{t-1} + i_t k_t`` rides along as a column
+    of ones appended to ``v``: ``y[..., hd]`` is ``q_t·n_t`` and the final
+    state's column ``hd`` is ``n_T``.  Then ``h_t = q_t·C_t / max(|q_t·n_t|,
+    1)``, which is the JAX package's ``num / max(den, e^{-m_t})`` exactly:
+    its stabilized state is ``Ĉ = C e^{-m}``.  Every log-gate is ≤ 0
+    (sigmoid gates), so the kernel's exponents are ≤ 0, nothing overflows,
+    and ``e^{m} ≤ 1``.
+
+    The returned state is ``C = C_T``, ``n = n_T``, ``m = 0``: the JAX
+    package's ``(Ĉ, n̂, m)`` in another scaling.  The per-step decode
+    (:func:`_mlstm_scan`) is invariant under that scaling, so it continues
+    from either; compare ``C·e^{m}`` and ``n·e^{m}``, never the raw entries.
+    A given ``state`` enters by linearity: its unscaled ``[C·e^{m} | n·e^{m}]``
+    decayed by ``e^{L_t}`` (``L`` the cumulative log-forget) is added to
+    the kernel's outputs and final state."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    hd = 2 * D // H
+    bt = min(chunk, S)
+    if S % bt:
+        raise ValueError(f"seq_len {S} must divide the mLSTM chunk {bt}")
+    q, k, v, log_i, log_f = _mlstm_inputs(x, p, cfg)
+
+    def heads(t):               # [B,S,H,...] -> [B*H,S,...] f32
+        t = t.float().transpose(1, 2)
+        return t.reshape(B * H, S, *t.shape[3:])
+
+    q, k, v = heads(q), heads(k), heads(v)
+    lf = heads(log_f)[..., None]                      # [B*H,S,1]
+    gi = torch.exp(heads(log_i))[..., None]
+    dv = _ones_width(hd)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    v1 = torch.cat([v, torch.ones((B * H, S, 1), **f32),
+                    torch.zeros((B * H, S, dv - hd - 1), **f32)], dim=-1)
+    y, c_fin = mlstm_chunk(q, k, v1, lf, gi, bt)
+    if state is not None:
+        C0, n0, m0 = _mlstm_state(state, B, H, hd, x.device)
+        w = torch.exp(m0).reshape(B * H, 1, 1)
+        s0 = torch.zeros((B * H, hd, dv), **f32)
+        s0[..., :hd] = C0.reshape(B * H, hd, hd) * w
+        s0[..., hd] = n0.reshape(B * H, hd) * w[..., 0]
+        decay = torch.exp(torch.cumsum(lf, dim=1))    # [B*H,S,1]
+        y = y + decay * (q @ s0)
+        c_fin = c_fin + decay[:, -1:] * s0
+    h = y[..., :hd] / torch.clamp(y[..., hd:hd + 1].abs(), min=1.0)
+    h = h.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, 2 * D)
+    return _mlstm_out(x, h, p), {
+        "C": c_fin[..., :hd].reshape(B, H, hd, hd),
+        "n": c_fin[..., hd].reshape(B, H, hd),
+        "m": torch.zeros((B, H), **f32)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar memory)
+# ---------------------------------------------------------------------------
+
+
+def init_slstm(cfg: ModelConfig, dtype, device, generator
+               ) -> Dict[str, torch.Tensor]:
+    d, H = cfg.d_model, cfg.n_heads
+    dh = d // H
+    s = 1.0 / math.sqrt(d)
+    return {"w_x": normal((d, 4 * d), s, dtype, device, generator),
+            # block-diagonal recurrent weights, per head
+            "r": normal((H, dh, 4 * dh), 1 / math.sqrt(dh), dtype, device,
+                        generator),
+            "w_o": normal((d, d), s, dtype, device, generator)}
+
+
+def slstm(x, p: Params, cfg: ModelConfig, state=None):
+    """sLSTM with exponential gating, a per-step loop in plain tensor ops
+    (no TPU kernel computes it).  state: {"c","n","h","m": [B,D]} f32;
+    ``n`` starts at ones."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    dh = D // H
+    zx = x @ p["w_x"]                                  # [B,S,4D]
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        c, n, h, m = (torch.zeros((B, D), **f32), torch.ones((B, D), **f32),
+                      torch.zeros((B, D), **f32), torch.zeros((B, D), **f32))
+    else:
+        c, n, h, m = (state[k].float() for k in ("c", "n", "h", "m"))
+    # recurrent weights laid out gate-major to match w_x's [4*D] layout
+    r = p["r"].float().reshape(H, dh, 4, dh)
+    hs = []
+    for t in range(S):
+        zr = torch.einsum("bhk,hkgj->bghj", h.reshape(B, H, dh), r)
+        z = zx[:, t].float() + zr.reshape(B, 4 * D)
+        zi, zf, zz, zo = z.chunk(4, dim=-1)
+        m_new = torch.maximum(zf + m, zi)
+        i = torch.exp(zi - m_new)
+        f = torch.exp(zf + m - m_new)
+        c = f * c + i * torch.tanh(zz)
+        n = f * n + i
+        h = torch.sigmoid(zo) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(x.dtype) @ p["w_o"]
+    return y, {"c": c, "n": n, "h": h, "m": m}

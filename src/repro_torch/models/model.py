@@ -1,7 +1,8 @@
 """Model assembly of the serving path: embeddings, blocks, caches, prefill
 and decode.  Port of ``src/repro/models/model.py`` for the decoder-only
-attention families (block kinds ``ATTN``/``SWA`` with ``DENSE_FFN`` or
-``MOE_FFN``, the ``patch`` frontend stub).
+families: attention (block kinds ``ATTN``/``SWA``), the recurrent mixers
+(``RGLRU``, ``MLSTM``, ``SLSTM``), each with ``DENSE_FFN``, ``MOE_FFN`` or
+``NO_FFN``, and the ``patch`` frontend stub.
 
 :class:`Model` is an ``nn.Module`` holding the embedding table (padded
 vocab rows), one :class:`Block` per layer in a plain ``ModuleList`` (the
@@ -15,9 +16,9 @@ only: parameters do not require gradients, and :meth:`Model.prefill` and
 
 A model lives on one device: ``cuda:0`` unless the caller names another
 (``device="cpu"`` runs the kernels' plain versions; ``"meta"`` allocates
-nothing, for parameter counts).  RG-LRU, mLSTM and sLSTM blocks,
-cross-attention and the encoder–decoder family join the port in later
-slices; building a model that holds one raises ``NotImplementedError``.
+nothing, for parameter counts).  Cross-attention and the
+encoder–decoder family join the port in a later slice; building a model
+that holds one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,9 +37,6 @@ Cache = Dict[str, torch.Tensor]
 
 #: the block kinds of later slices, and the slice that brings each
 LATER_SLICES = {
-    RGLRU: "the recurrent slice (recurrentgemma-2b, rglru_scan)",
-    MLSTM: "the recurrent slice (xlstm-125m, mlstm_chunk)",
-    SLSTM: "the recurrent slice (xlstm-125m, sLSTM)",
     "cross_attn": "the encoder-decoder slice (whisper-large-v3)",
     "encoder_decoder": "the encoder-decoder slice (whisper-large-v3)",
 }
@@ -69,22 +67,32 @@ class ParamDict(nn.Module):
         return self._parameters
 
 
+#: the recurrent mixers, by block kind: the keys of their state (cache)
+STATE_KEYS = {RGLRU: ("h", "conv"), MLSTM: ("C", "n", "m"),
+              SLSTM: ("c", "n", "h", "m")}
+
+
 class Block(nn.Module):
-    """One decoder block: pre-norm mixer and pre-norm FFN (dense or MoE),
-    each added to the residual stream."""
+    """One decoder block: pre-norm mixer (attention or a recurrent cell)
+    and pre-norm FFN (dense, MoE or none), each added to the residual
+    stream.  An attention block's cache is its k/v; a recurrent block's
+    is its state, which the prefill returns and the decode updates in
+    place."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, dtype, device,
                  generator):
         super().__init__()
-        if spec.mixer not in (ATTN, SWA):
-            raise _not_in_slice(spec.mixer)
         if spec.cross_attn:
             raise _not_in_slice("cross_attn")
         self.cfg, self.spec = cfg, spec
         self.window = cfg.window if spec.mixer == SWA else None
         self.norm1 = ParamDict(L.init_norm(cfg, dtype, device))
-        self.mixer = ParamDict(L.init_attention(cfg, dtype, device,
-                                                generator))
+        init = {ATTN: L.init_attention, SWA: L.init_attention,
+                RGLRU: L.init_rglru, MLSTM: L.init_mlstm,
+                SLSTM: L.init_slstm}.get(spec.mixer)
+        if init is None:
+            raise ValueError(spec.mixer)
+        self.mixer = ParamDict(init(cfg, dtype, device, generator))
         if spec.ffn == DENSE_FFN:
             self.norm2 = ParamDict(L.init_norm(cfg, dtype, device))
             self.ffn = ParamDict(L.init_ffn(cfg, dtype, device, generator))
@@ -99,6 +107,41 @@ class Block(nn.Module):
             return min(self.window, seq_len)
         return seq_len
 
+    def init_cache(self, batch: int, seq_len: int, dtype, device) -> Cache:
+        """This block's zeroed cache: k/v ``[B, cache_len, Hkv, hd]`` for
+        attention (a ring of ``min(window, seq_len)`` slots when
+        windowed), else the recurrent state of the JAX package's
+        ``init_block_cache``."""
+        cfg = self.cfg
+        f32 = dict(dtype=torch.float32, device=device)
+        kind = self.spec.mixer
+        if kind == RGLRU:
+            dr = cfg.d_rnn or cfg.d_model
+            return {"h": torch.zeros((batch, dr), **f32),
+                    "conv": torch.zeros((batch, cfg.conv_width - 1, dr),
+                                        dtype=dtype, device=device)}
+        if kind == MLSTM:
+            hd = 2 * cfg.d_model // cfg.n_heads
+            return {"C": torch.zeros((batch, cfg.n_heads, hd, hd), **f32),
+                    "n": torch.zeros((batch, cfg.n_heads, hd), **f32),
+                    "m": torch.full((batch, cfg.n_heads), -1e30, **f32)}
+        if kind == SLSTM:
+            D = cfg.d_model
+            return {"c": torch.zeros((batch, D), **f32),
+                    "n": torch.ones((batch, D), **f32),
+                    "h": torch.zeros((batch, D), **f32),
+                    "m": torch.zeros((batch, D), **f32)}
+        shape = (batch, self.cache_len(seq_len), cfg.n_kv_heads, cfg.hd)
+        return {n: torch.zeros(shape, dtype=dtype, device=device)
+                for n in ("k", "v")}
+
+    def _recurrent(self, h, state=None):
+        """The recurrent mixer over ``h``: (y, new state).  The layer is
+        looked up at the call, so that a harness can patch it."""
+        layer = {RGLRU: L.rglru, MLSTM: L.mlstm,
+                 SLSTM: L.slstm}[self.spec.mixer]
+        return layer(h, self.mixer.p, self.cfg, state)
+
     def _ffn(self, x):
         if self.spec.ffn == NO_FFN:
             return x
@@ -111,6 +154,12 @@ class Block(nn.Module):
         """The block over the full prompt; returns (x, filled cache)."""
         cfg = self.cfg
         h = L.apply_norm(x, self.norm1.p, cfg)
+        if self.spec.mixer in STATE_KEYS:
+            y, state = self._recurrent(h)
+            # copies of strided views (the conv tail, the mLSTM's n), so
+            # that the cache does not hold the tensors they slice
+            return self._ffn(x + y), {n: t.contiguous()
+                                      for n, t in state.items()}
         S = x.shape[1]
         y, k, v = L.attention(h, self.mixer.p, cfg, window=self.window,
                               positions=positions)
@@ -125,8 +174,15 @@ class Block(nn.Module):
         return self._ffn(x + y), {"k": k.contiguous(), "v": v.contiguous()}
 
     def decode(self, x, cache: Cache, pos: int):
-        """One token; writes its k/v into ``cache`` in place."""
+        """One token; writes its k/v, or the new recurrent state, into
+        ``cache`` in place."""
         h = L.apply_norm(x, self.norm1.p, self.cfg)
+        keys = STATE_KEYS.get(self.spec.mixer)
+        if keys is not None:
+            y, state = self._recurrent(h, {n: cache[n] for n in keys})
+            for n in keys:
+                cache[n].copy_(state[n])
+            return self._ffn(x + y), cache
         y, cache = L.attention_decode(h, self.mixer.p, self.cfg, cache, pos,
                                       window=self.window)
         return self._ffn(x + y), cache
@@ -190,16 +246,9 @@ class Model(nn.Module):
 
     # -- caches ------------------------------------------------------------
     def init_caches(self, batch: int, seq_len: int) -> List[Cache]:
-        """Zeroed k/v caches, one per block (windowed blocks hold a ring
-        of ``min(window, seq_len)`` slots)."""
-        cfg = self.cfg
-        out = []
-        for blk in self.blocks:
-            shape = (batch, blk.cache_len(seq_len), cfg.n_kv_heads, cfg.hd)
-            out.append({n: torch.zeros(shape, dtype=self.compute_dtype,
-                                        device=self.device)
-                        for n in ("k", "v")})
-        return out
+        """Zeroed caches, one per block (:meth:`Block.init_cache`)."""
+        return [blk.init_cache(batch, seq_len, self.compute_dtype,
+                               self.device) for blk in self.blocks]
 
     # -- serving entry points ----------------------------------------------
     @torch.no_grad()

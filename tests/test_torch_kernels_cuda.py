@@ -318,6 +318,10 @@ def test_moe_gmm_sm90_kernel_matches_plain(dev, E, C, D, F, bc, counts,
     (2, 65, 100, "f32", False),
     (2, 200, 64, "f32", True),
     (1, 4096, 2560, "bf16", False),
+    # recurrentgemma-2b's RG-LRU layers on the model path: f32 from a
+    # non-zero h0, the prefill (batch 2 x 3072 steps) and a decode step
+    (2, 3072, 2560, "f32", False),
+    (2, 1, 2560, "f32", False),
 ])
 def test_rglru_scan_kernel_bit_equal_to_plain(dev, B, S, D, dt, unaligned):
     rng = np.random.default_rng(2)
@@ -352,6 +356,10 @@ def test_rglru_scan_kernel_bit_equal_to_plain(dev, B, S, D, dt, unaligned):
     (1, 250, 384, 132, 128, "bf16"),
     (1, 180, 704, 24, 256, "bf16"),
     (2, 90, 8, 8, 16, "bf16"),
+    # the mLSTM layer's v widened by the normalizer's column of ones:
+    # dv = hd + 1 (385 at xlstm-125m's hd 384) and off every tile
+    (4, 256, 384, 385, 128, "f32"),
+    (2, 96, 32, 33, 16, "f32"),
 ])
 def test_mlstm_chunk_kernel_matches_plain(dev, BH, S, dk, dv, bt, dt):
     rng = np.random.default_rng(3)

@@ -7,13 +7,19 @@ cfg)`` in f32, carries its weights into the port through
 holds the prefill's logits and caches, then three decode steps' logits
 (both packages fed the JAX greedy tokens), to 1e-4 absolute; the port's
 own greedy tokens must be the JAX ones.  On CPU tensors the layers' flash
-attention and grouped-matmul ops run their plain versions.  The cases
-cover a dense model (llama3.2-3b), the MoE with both dispatches
-(granite-moe-3b-a800m, ``moe_impl`` global and grouped), sliding-window
-attention with a prompt past its window, so that the ring cache rolls
-(h2o-danube-3-4b, window 16, 24 tokens), and the patch frontend
-(internvl2-2b).  The JAX references are computed once per case
-(module-scoped fixture).
+attention, grouped-matmul, RG-LRU scan and mLSTM chunk ops run their plain
+versions.  The cases cover a dense model (llama3.2-3b), the MoE with both
+dispatches (granite-moe-3b-a800m, ``moe_impl`` global and grouped),
+sliding-window attention with a prompt past its window, so that the ring
+cache rolls (h2o-danube-3-4b, window 16, 24 tokens), the patch frontend
+(internvl2-2b), RG-LRU blocks beside local attention past its window
+(recurrentgemma-2b, 24 tokens) and the mLSTM and sLSTM blocks (xlstm-125m,
+the per-step mLSTM and the chunked one in 3 chunks of 8).  mLSTM states
+are compared as ``C·e^{m}`` and ``n·e^{m}``: the chunked form keeps them
+in another scaling (``repro_torch.models.layers.mlstm_chunked``).  The
+JAX references are computed once per case (module-scoped fixture), from
+one JAX tree per architecture.  The recurrent layers alone, from a
+non-zero state, are in ``tests/test_torch_recurrent.py``.
 """
 import dataclasses
 import functools
@@ -46,27 +52,26 @@ ROOT = Path(__file__).resolve().parent.parent
 #: f32 on both sides: sums in another order stay far inside 1e-4
 ATOL = 1e-4
 B, DECODE_STEPS = 2, 3
-#: (arch, moe_impl, prompt length including frontend tokens)
-CASES = [("llama3.2-3b", None, 16),
-         ("granite-moe-3b-a800m", "global", 16),
-         ("granite-moe-3b-a800m", "grouped", 16),
-         ("h2o-danube-3-4b", None, 24),
-         ("internvl2-2b", None, 16)]
-IDS = [f"{a}-{impl}" if impl else a for a, impl, _ in CASES]
+#: (arch, config overrides, prompt length including frontend tokens)
+CASES = [("llama3.2-3b", {}, 16),
+         ("granite-moe-3b-a800m", {"moe_impl": "global"}, 16),
+         ("granite-moe-3b-a800m", {"moe_impl": "grouped"}, 16),
+         ("h2o-danube-3-4b", {}, 24),
+         ("internvl2-2b", {}, 16),
+         ("recurrentgemma-2b", {}, 24),
+         ("xlstm-125m", {"mlstm_impl": "scan"}, 16),
+         ("xlstm-125m", {"mlstm_impl": "chunked", "mlstm_chunk": 8}, 24)]
+IDS = ["-".join([a, *map(str, over.values())]) for a, over, _ in CASES]
 #: the architectures whose block kinds are all in the slice
 IN_SLICE = ("llama3.2-3b", "granite-moe-3b-a800m", "glm4-9b",
             "h2o-danube-3-4b", "internvl2-2b", "mixtral-8x22b",
-            "llama3-405b")
-OUT_OF_SLICE = ("recurrentgemma-2b", "xlstm-125m", "whisper-large-v3")
+            "llama3-405b", "recurrentgemma-2b", "xlstm-125m")
+OUT_OF_SLICE = ("whisper-large-v3",)
 
 
-def _cfgs(arch, impl):
-    ref_cfg = ref_configs.get_smoke_config(arch)
-    cfg = configs.get_smoke_config(arch)
-    if impl is not None:
-        ref_cfg = dataclasses.replace(ref_cfg, moe_impl=impl)
-        cfg = dataclasses.replace(cfg, moe_impl=impl)
-    return ref_cfg, cfg
+def _cfgs(arch, over):
+    return (dataclasses.replace(ref_configs.get_smoke_config(arch), **over),
+            dataclasses.replace(configs.get_smoke_config(arch), **over))
 
 
 def _prompt(cfg, S):
@@ -80,14 +85,26 @@ def _prompt(cfg, S):
     return out
 
 
+def _comparable(cache):
+    """A layer's cache as compared: mLSTM states as ``C·e^{m}`` and
+    ``n·e^{m}`` (the scaling-free state), the others as they are."""
+    if "C" not in cache:
+        return cache
+    w = np.exp(np.asarray(cache["m"], np.float64))
+    return {"C": cache["C"] * w[..., None, None],
+            "n": cache["n"] * w[..., None]}
+
+
 def _flat_caches(caches, cfg):
-    """The JAX grouped cache tree as one {"k","v"} per layer (numpy)."""
+    """The JAX grouped cache tree as one dict per layer (numpy), each
+    kind's keys."""
     out = []
     for (repeat, body), group in zip(cfg.layer_groups, caches):
         for r in range(repeat):
             for i in range(len(body)):
-                out.append({n: np.asarray(group[f"slot{i}"][n][r])
-                            for n in ("k", "v")})
+                slot = group[f"slot{i}"]
+                out.append(_comparable({n: np.asarray(slot[n][r])
+                                        for n in slot}))
     return out
 
 
@@ -108,8 +125,8 @@ def jax_trees():
 @pytest.fixture(scope="module", params=CASES, ids=IDS)
 def case(request, jax_trees):
     """The JAX reference of one case, and the port's run on its weights."""
-    arch, impl, S = request.param
-    ref_cfg, cfg = _cfgs(arch, impl)
+    arch, over, S = request.param
+    ref_cfg, cfg = _cfgs(arch, over)
     tree = jax_trees(arch, ref_cfg)
     prompt = _prompt(cfg, S)
     cache_len = S + DECODE_STEPS + 1
@@ -137,7 +154,8 @@ def case(request, jax_trees):
         batch["embeds"] = torch.from_numpy(prompt["embeds"])
     logits, tcaches = model.prefill(batch, cache_len=cache_len)
     got = {"prefill": logits.numpy(),
-           "caches": [{n: c[n].numpy().copy() for n in c} for c in tcaches],
+           "caches": [_comparable({n: c[n].numpy().copy() for n in c})
+                      for c in tcaches],
            "steps": [], "tokens": [logits[:, -1].argmax(-1)[:, None].numpy()]}
     for i in range(DECODE_STEPS):
         # both packages take the JAX greedy token of the step before
@@ -145,7 +163,8 @@ def case(request, jax_trees):
         logits, tcaches = model.decode_step(tok, tcaches, S + i)
         got["steps"].append(logits.numpy())
         got["tokens"].append(logits[:, -1].argmax(-1)[:, None].numpy())
-    got["decode_caches"] = [{n: c[n].numpy() for n in c} for c in tcaches]
+    got["decode_caches"] = [_comparable({n: c[n].numpy() for n in c})
+                            for c in tcaches]
     return {"cfg": cfg, "ref": ref, "got": got, "S": S}
 
 
@@ -165,7 +184,8 @@ def test_prefill_caches_match_jax(case):
     got, want = case["got"]["caches"], case["ref"]["caches"]
     assert len(got) == len(want) == case["cfg"].n_layers
     for layer, (g, w) in enumerate(zip(got, want)):
-        for n in ("k", "v"):
+        assert sorted(g) == sorted(w), (layer, sorted(g), sorted(w))
+        for n in w:
             _close(g[n], w[n], f"layer {layer} cache {n}")
 
 
@@ -175,7 +195,8 @@ def test_decode_logits_and_caches_match_jax(case):
         _close(g, w, f"decode step {i} logits")
     for layer, (g, w) in enumerate(zip(case["got"]["decode_caches"],
                                        case["ref"]["decode_caches"])):
-        for n in ("k", "v"):
+        assert sorted(g) == sorted(w), (layer, sorted(g), sorted(w))
+        for n in w:
             _close(g[n], w[n], f"layer {layer} cache {n} after decode")
 
 
@@ -254,9 +275,12 @@ def test_model_defaults_to_the_card():
 
 
 def test_new_packages_import_no_jax():
-    """configs, models and launch import neither jax nor the JAX package."""
+    """configs, models (the recurrent layers and the kernel ops they
+    call among them) and launch import neither jax nor the JAX package."""
     code = ("import sys; import repro_torch.configs, repro_torch.models, "
-            "repro_torch.launch.serve; bad = [m for m in sys.modules if "
+            "repro_torch.launch.serve; from repro_torch.models.layers "
+            "import rglru, mlstm, mlstm_chunked, slstm, rglru_scan, "
+            "mlstm_chunk; bad = [m for m in sys.modules if "
             "m.split('.')[0] in ('jax', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -7,8 +7,12 @@ copied to the card; prefill and decode run on both and must agree, while
 the launch counts show which kernel ran: f32 on the CUDA-core flash
 attention and grouped-matmul kernels, bf16 on the wgmma/TMA ones (the
 smoke heads of 8 and 16 and the expert widths are multiples of 8, so TMA
-can load them).  The shim's legacy ``launch`` on a ``cuda`` session must
-give the interpreter's bits.
+can load them).  The recurrent families likewise: recurrentgemma-2b
+(RG-LRU on the scan kernel in the prefill and every decode step, local
+attention on flash past its window) and xlstm-125m's production profile
+(the chunked mLSTM on ``mlstm_chunk`` in the prefill, the per-step decode
+and the sLSTM in plain ops).  The shim's legacy ``launch`` on a ``cuda``
+session must give the interpreter's bits.
 
 Marked ``gpu``: without a CUDA device every test skips.  On a machine with
 one (no jax needed), from the checkout root:
@@ -25,8 +29,11 @@ import torch
 from repro_torch import configs
 from repro_torch.core import HetSession, TranslationCache
 from repro_torch.core import kernels_suite as ks
+from repro_torch.configs.base import MLSTM, RGLRU, SWA
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_fwd
 from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_fwd
 from repro_torch.launch import serve
 from repro_torch.models import Model
 
@@ -40,7 +47,9 @@ BF16_TOL = 5e-2
 COUNTERS = {"flash_f32": (flash_attention_fwd, "launches"),
             "flash_sm90": (flash_attention_fwd, "sm90_launches"),
             "gmm_f32": (moe_gmm_fwd, "launches"),
-            "gmm_sm90": (moe_gmm_fwd, "sm90_launches")}
+            "gmm_sm90": (moe_gmm_fwd, "sm90_launches"),
+            "rglru": (rglru_scan_fwd, "launches"),
+            "mlstm": (mlstm_chunk_fwd, "launches")}
 
 
 @pytest.fixture
@@ -111,6 +120,39 @@ def test_smoke_model_on_the_card_matches_cpu(arch, S, dtype, dev):
         # three expert products a layer, in the prefill and each decode step
         assert ran[f"gmm_{route}"] == 3 * cfg.n_layers * 3 and \
             ran[f"gmm_{other}"] == 0, ran
+
+
+@pytest.mark.parametrize("arch,S,dtype", [
+    ("recurrentgemma-2b", 40, torch.float32),
+    ("recurrentgemma-2b", 40, torch.bfloat16),
+    ("xlstm-125m", 48, torch.float32)])
+def test_recurrent_smoke_model_on_the_card_matches_cpu(arch, S, dtype, dev):
+    """recurrentgemma-2b past its window of 16, and xlstm-125m's production
+    profile in chunks of 16: the same weights on the CPU (plain versions)
+    and the card (kernels), fed the same tokens."""
+    cfg = dataclasses.replace(configs.get_optimized_smoke_config(arch),
+                              mlstm_chunk=16)
+    ref = Model(cfg, generator=torch.Generator().manual_seed(0),
+                device="cpu")
+    cpu, gpu = _cast(ref, cfg, dtype, "cpu"), _cast(ref, cfg, dtype, dev)
+    batch = serve.make_batch(cfg, 2, S, seed=5, device="cpu")
+    steps = 3
+    want, tokens = _run(cpu, batch, steps)
+    before = _counts()
+    got, _ = _run(gpu, {k: v.to(dev) for k, v in batch.items()}, steps,
+                  tokens)
+    torch.cuda.synchronize()
+    ran = {k: _counts()[k] - before[k] for k in COUNTERS}
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+    kinds = [s.mixer for s in cfg.blocks()]
+    # the scan in the prefill and in every decode step; the chunked mLSTM
+    # in the prefill only; flash in the local-attention layers' prefill
+    assert ran["rglru"] == kinds.count(RGLRU) * steps, ran
+    assert ran["mlstm"] == kinds.count(MLSTM), ran
+    route = "flash_f32" if dtype == torch.float32 else "flash_sm90"
+    assert ran[route] == kinds.count(SWA), ran
 
 
 def test_legacy_shim_launch_on_cuda_is_bit_equal_to_interp(dev):
