@@ -151,8 +151,31 @@ card) and against the NumPy oracles:
    forget gates one step late and its prefill state handed on in the
    empty state's scaling fall outside it.
 
+9. the encoder–decoder family on the serving path at full width and
+   depth: whisper-large-v3 (32 encoder and 32 decoder layers, d_model
+   1280, 20 heads of 64, 1,603,097,600 parameters in bf16 drawn on the
+   card from a seeded ``torch.Generator``) served by
+   ``repro_torch.launch.serve`` at batch 4 with 1500 frames
+   (``WHISPER_CROSS_LEN``, 30 s of audio), a text prompt of 64 tokens and
+   32 steps, phase 7's three parts: (a) prefill and decode milliseconds,
+   tokens/s, the launch counts split at the end of the prefill (96
+   ``flash_attention_sm90``: 32 bidirectional encoder, 32 causal decoder
+   and 32 cross-attention calls; then 32 a decode step, the
+   cross-attention of one query against 1500 keys, and nothing else), the
+   head-major cross cache, the busy share and flash's device time of a
+   profiled prefill and decode step, the bytes the flash wrapper copies
+   to contiguous tensors, the bounds of both; (b) a second, identical run
+   whose flash calls are sampled (8 encoder, 8 cross prefill, 8 cross
+   decode), each held against the plain version at ``BF16_ATTN_TOL``, and
+   the kernel, its plain version and SDPA (no mask) timed at the
+   encoder's and the cross decode's shapes; (c) the same weights in f32:
+   a prefill and a decode step on the f32 kernel against the plain
+   version, logits within ``F32_MODEL_TOL`` and the same greedy tokens,
+   while the encoder run causally, each decoder layer's decode step on
+   the next layer's cross k/v and a zeroed cross cache fall outside it.
+
 Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6,
-phase 8 after phase 7.  Phase 4 also times
+phase 8 after phase 7, phase 9 after phase 8.  Phase 4 also times
 the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
 versions, and the one PyTorch call that computes the same function where
@@ -172,8 +195,8 @@ for it), ``device_ms`` the device time of its kernels alone (from
 
 The launch counts of the kernels are reset before phases 2-3 and read after
 them, reset before phase 5's main path and read after it, and reset before
-each serving run of phases 7 and 8 and read at the end of its prefill and
-after it (``model_path`` in the kernels line, by model).  Any
+each serving run of phases 7, 8 and 9 and read at the end of its prefill
+and after it (``model_path`` in the kernels line, by model).  Any
 mismatch or launch error ends the run with a non-zero code.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -341,6 +364,12 @@ P8_MODELS = (("recurrentgemma-2b", "get_config", 2, 3072, F32_MODEL_TOL),
              ("xlstm-125m", "get_optimized_config", 8, 2048,
               XLSTM_MODEL_TOL))
 P8_STEPS = 32
+#: phase 9: whisper-large-v3 (src/repro_torch/configs/whisper_large_v3.py)
+#: at full width and depth, bf16, served at batch 4 with 30 s of audio
+#: (WHISPER_CROSS_LEN = 1500 frames of the frontend stub) and a text
+#: prompt of 64 tokens, 32 steps
+WHISPER_ARCH, WHISPER_B, WHISPER_S, WHISPER_STEPS = \
+    "whisper-large-v3", 4, 64, 32
 
 
 class SmokeFailure(Exception):
@@ -2260,6 +2289,373 @@ def phase8(dev, smi: str) -> dict:
     return {m[0]: _phase8_model(dev, smi, *m, P8_STEPS) for m in P8_MODELS}
 
 
+def _whisper_bounds(model, B: int, S: int, E: int, steps: int,
+                    caches) -> tuple:
+    """(prefill bound ms, by, decode-step bound ms, by, text) of
+    whisper's serving path: the prefill by its operations at the bf16
+    peak — the frontend's projection and every encoder matrix over B·E
+    frames, bidirectional attention over E² pairs a layer and head, each
+    decoder layer's self-attention, FFN and cross q/o matrices over B·S
+    tokens, its cross k/v projections over B·E frames, causal attention
+    over S(S+1)/2 pairs and cross-attention over S·E, the last position's
+    logits — or its weights' bytes; a decode step by the bytes it must
+    read and write: the decoder's weights but the cross k/v projections
+    (used only in the prefill), the unembedding, B embedding rows, every
+    layer's self and cross caches, and the new keys and values."""
+    cfg = model.cfg
+    D, H, hd, Vp = cfg.d_model, cfg.n_heads, cfg.hd, cfg.padded_vocab
+    L_enc, L_dec = cfg.enc_layers, cfg.n_layers
+
+    def mats(mods):
+        return sum(p.numel() for m in mods for p in m.parameters()
+                   if p.dim() >= 2)
+    cross_kv = sum(blk.cross.p[n].numel() for blk in model.blocks
+                   for n in ("wk", "wv"))
+    dec_mats = mats(model.blocks) - cross_kv
+    ops = {"encoder matrices": 2.0 * B * E * (D * D + mats(model.enc.blocks)),
+           "encoder attention": 4.0 * hd * B * H * E * E * L_enc,
+           "cross k/v projections": 2.0 * B * E * cross_kv,
+           "decoder matrices": 2.0 * B * S * dec_mats,
+           "decoder self-attention": 4.0 * hd * B * H * (S * (S + 1) / 2)
+           * L_dec,
+           "cross-attention": 4.0 * hd * B * H * S * E * L_dec,
+           "logits": 2.0 * B * D * Vp}
+    n_ops = sum(ops.values())
+    elt = model.embed.element_size()
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    t_ops, t_w = n_ops / BF16_OPS_PER_S, w_bytes / HBM_BYTES_PER_S
+    dec_w = sum(p.numel() for p in model.blocks.parameters()) - cross_kv
+    head = model.lm_head.numel() if model.lm_head is not None \
+        else model.embed.numel()
+    w_read = (dec_w + head + B * D
+              + sum(p.numel() for p in model.final_norm.parameters())) * elt
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c.values())
+    new_kv = 2 * B * cfg.n_kv_heads * hd * elt * L_dec
+    dec_bytes = w_read + cache_bytes + new_kv
+    text = (f"prefill {n_ops:.6g} operations ("
+            + ", ".join(f"{k} {v:.6g}" for k, v in ops.items())
+            + f") at 989 TFLOP/s, weights {w_bytes} B; decode step "
+            f"{dec_bytes} B (weights read {w_read}, caches {cache_bytes}, "
+            f"new k/v {new_kv}) at 3.35 TB/s")
+    return (max(t_ops, t_w) * 1e3, "operations" if t_ops >= t_w else "bytes",
+            dec_bytes / HBM_BYTES_PER_S * 1e3, "bytes", text)
+
+
+def phase9(dev, smi: str) -> dict:
+    """Phase 9: the encoder–decoder family on the serving path at
+    whisper-large-v3's full width and depth, through
+    ``repro_torch.launch.serve``, with flash attention on the encoder,
+    the decoder's self-attention and the cross-attention of the prefill
+    and of every decode step.  Returns what the kernels line carries, by
+    kernel name."""
+    import dataclasses
+    import random
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import _cuda as kernel_lib
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, flash_attention_plain)
+    from repro_torch.launch import serve
+    from repro_torch.models import WHISPER_CROSS_LEN, Model, layers
+
+    counters = launch_counters()
+    cfg = configs.get_config(WHISPER_ARCH)
+    B, S, steps, E = WHISPER_B, WHISPER_S, WHISPER_STEPS, WHISPER_CROSS_LEN
+    L_enc, L_dec = cfg.enc_layers, cfg.n_layers
+    H, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    op_flash = layers.flash_attention
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                  device=dev)
+    torch.cuda.synchronize()
+    print(f"# phase 9: {cfg.name} at full width and depth ({L_enc} encoder "
+          f"and {L_dec} decoder layers, d_model {cfg.d_model}, {H} heads of "
+          f"{hd}), {sum(p.numel() for p in model.parameters())} parameters "
+          f"in {model.embed.dtype} on the card, drawn in "
+          f"{time.perf_counter() - t0:.2f} s; batch {B}, {E} frames, text "
+          f"prompt {S}, {steps} steps on {smi}")
+
+    def run_serve(seed: int, n_steps: int = steps):
+        return serve.serve(cfg, batch=B, prompt_len=S, steps=n_steps,
+                           model=model, seed=seed, enc_len=E)
+
+    run_serve(1, 2)       # warm-up at the main path's shapes
+    torch.cuda.synchronize()
+
+    # -- (a) serving: counts split at the end of the prefill ----------------
+    prefill = model.prefill
+    after_prefill = {}
+
+    def prefill_and_count(*a, **kw):
+        out = prefill(*a, **kw)
+        torch.cuda.synchronize()
+        after_prefill.update(read_launches(counters))
+        return out
+
+    reset_launches(counters)
+    with _patched(model, prefill=prefill_and_count):
+        run = run_serve(0)
+    torch.cuda.synchronize()
+    total = read_launches(counters)
+    decode = {n: total[n] - after_prefill[n] for n in total}
+    tokens, caches, batch = run["tokens"], run["caches"], run["batch"]
+    check(tuple(tokens.shape) == (B, steps) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.padded_vocab,
+          f"phase 9: generated tokens {tuple(tokens.shape)} out of range")
+    n_pre, n_dec = L_enc + 2 * L_dec, L_dec * (steps - 1)
+    check(after_prefill["flash_attention_sm90"] == n_pre
+          and sum(after_prefill.values()) == n_pre,
+          f"phase 9 prefill: expected {n_pre} flash_attention_sm90 launches "
+          f"({L_enc} encoder, {L_dec} decoder self-attention, {L_dec} "
+          f"cross-attention) and no other, got {after_prefill}")
+    check(decode["flash_attention_sm90"] == n_dec
+          and sum(decode.values()) == n_dec,
+          f"phase 9 decode: expected {n_dec} flash_attention_sm90 launches "
+          f"(the cross-attention of {L_dec} layers a step) and no other, "
+          f"got {decode}")
+    for c in caches:
+        for n in ("cross_k", "cross_v"):
+            check(tuple(c[n].shape) == (B, hkv, E, hd)
+                  and c[n].is_contiguous()
+                  and bool(torch.isfinite(c[n]).all()),
+                  f"phase 9: cross cache {n} {tuple(c[n].shape)} not "
+                  f"head-major [B, Hkv, {E}, hd], contiguous and finite")
+    print(f"phase 9 (a): served {B} prompts of {E} frames and {S} text "
+          f"tokens, {steps} tokens each: prefill {run['prefill_ms']:.3f} "
+          f"ms, decode {run['decode_ms_per_step']:.3f} ms a step, "
+          f"{run['tokens_per_s']:.1f} tokens/s on {smi}")
+    print(f"# phase 9 launches: prefill {after_prefill}; {steps - 1} decode "
+          f"steps {decode}")
+
+    tok = tokens[:, -1:].to(dev)
+
+    def go_prefill():
+        return model.prefill(batch, cache_len=S + steps)
+
+    def go_decode():
+        return model.decode_step(tok, caches, S + steps - 1)
+
+    raw = {"prefill": profile_launch(go_prefill),
+           "decode step": profile_launch(go_decode)}
+    prof = {w: _by_kernel(r) for w, r in raw.items()}
+    # the flash inputs that the wrapper copies to contiguous tensors (the
+    # profile's copy kernels hold them among others)
+    prepare, copied = kernel_lib.prepare, []
+
+    def counting_prepare(operands, *a, **kw):
+        copied.append(sum(t.numel() * t.element_size() for t in operands
+                          if not t.is_contiguous()))
+        return prepare(operands, *a, **kw)
+
+    copies = {}
+    with _patched(kernel_lib, prepare=counting_prepare):
+        for what, go in (("prefill", go_prefill), ("decode step", go_decode)):
+            copied.clear()
+            go()
+            copies[what] = sum(copied)
+    shares = {}
+    for what, wall in (("prefill", run["prefill_ms"]),
+                       ("decode step", run["decode_ms_per_step"])):
+        p = prof[what]
+        busy = sum(p.values())
+        shares[what] = {k: ms / wall for k, ms in p.items()}
+        print(f"# phase 9 {what}: the flash wrapper copies {copies[what]} B "
+              f"of non-contiguous inputs (at least "
+              f"{2 * copies[what] / HBM_BYTES_PER_S * 1e3:.4f} ms of copying "
+              f"at 3.35 TB/s)")
+        print(f"# phase 9 {what}: device busy {busy:.4f} ms of {wall:.4f} "
+              f"ms (busy share {busy / wall:.4f}): flash attention "
+              f"{p['flash_attention']:.4f} ms "
+              f"({p['flash_attention'] / wall:.4f}), other "
+              f"{p['other']:.4f} ms on {smi}")
+        _print_others(f"whisper {what}", raw[what])
+
+    pre_bound, pre_by, dec_bound, dec_by, text = _whisper_bounds(
+        model, B, S, E, steps, caches)
+    print(f"# phase 9 bounds: prefill {pre_bound:.4f} ms by {pre_by}, "
+          f"decode step {dec_bound:.4f} ms by {dec_by} ({text}); measured "
+          f"{run['prefill_ms'] / pre_bound:.2f}x and "
+          f"{run['decode_ms_per_step'] / dec_bound:.2f}x the bounds on {smi}")
+
+    # -- (b) a second run whose flash calls are sampled ----------------------
+    rnd = random.Random(0)
+    pools = {"encoder": L_enc, "cross prefill": L_dec, "cross decode": n_dec}
+    pick = {k: set(rnd.sample(range(n), CAPTURE_SAMPLE))
+            for k, n in pools.items()}
+    seen = dict.fromkeys(pools, 0)
+    captured = {k: [] for k in pools}
+
+    def kind_of(q, k, causal):
+        """The attention a flash call computes: the decoder's
+        self-attention is the causal one, the encoder's the square
+        bidirectional one."""
+        if causal:
+            return None
+        if q.shape[2] == k.shape[2]:
+            return "encoder"
+        return "cross decode" if q.shape[2] == 1 else "cross prefill"
+
+    def flash_capture(q, k, v, causal, window):
+        out = op_flash(q, k, v, causal, window)
+        kind = kind_of(q, k, causal)
+        if kind is not None:
+            if seen[kind] in pick[kind]:
+                captured[kind].append(((q, k, v, causal, window), out))
+            seen[kind] += 1
+        return out
+
+    with _patched(layers, flash_attention=flash_capture):
+        again = run_serve(0)
+    check(torch.equal(again["tokens"], tokens),
+          "phase 9 (b): a second run generated other tokens")
+    del again
+    check(all(len(captured[k]) == CAPTURE_SAMPLE for k in pools),
+          f"phase 9 (b): capture missed calls: "
+          f"{ {k: len(v) for k, v in captured.items()} }")
+    errs, done = {}, []
+    for kind, calls in captured.items():
+        for (q, k, v, causal, window), out in calls:
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            check(_close(out, want, BF16_ATTN_TOL),
+                  f"phase 9 (b): {kind} flash attention {tuple(q.shape)} x "
+                  f"{tuple(k.shape)} != plain")
+            errs[kind] = max(errs.get(kind, 0.0), _err(out, want))
+        (q, k, _, _, _), _ = calls[0]
+        done.append(f"{len(calls)} {kind} calls {tuple(q.shape)} x "
+                    f"{tuple(k.shape)} (max abs err {errs[kind]:.4g})")
+    print(f"phase 9 (b): {'; '.join(done)} within "
+          f"{_tol_text(BF16_ATTN_TOL)} of the plain version on {smi}")
+
+    # kernel, plain version and SDPA at the encoder's and the cross decode's
+    # shapes
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for kind in ("encoder", "cross decode"):
+        (q, k, v, _, _), _ = captured[kind][0]
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        Bq, Hq, Sq, d = qc.shape
+        Sk = kc.shape[2]
+        t_bytes = _nbytes(qc, kc, vc, qc) / HBM_BYTES_PER_S
+        t_ops = 4.0 * d * Bq * Hq * Sq * Sk / BF16_OPS_PER_S
+        fwd = (lambda qc=qc, kc=kc, vc=vc:
+               flash_attention_fwd(qc, kc, vc, causal=False))
+        times[kind] = {
+            "shape": [list(qc.shape), list(kc.shape)],
+            "ms": time_ms(fwd, 10),
+            "plain_ms": time_ms(lambda: flash_attention_plain(
+                qc, kc, vc, causal=False), 3),
+            "library_ms": time_ms(lambda: sdpa(qc, kc, vc), 10),
+            "device_ms": sum(profile_launch(fwd).values()) or None,
+            "library_device_ms": sum(profile_launch(
+                lambda: sdpa(qc, kc, vc)).values()) or None,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        tm = times[kind]
+        print(f"# phase 9 flash_attention_sm90 at the {kind} shape "
+              f"{tuple(qc.shape)} x {tuple(kc.shape)}: kernel "
+              f"{tm['ms']:.4f} ms (device {tm['device_ms']} ms), plain "
+              f"{tm['plain_ms']:.4f} ms, SDPA {tm['library_ms']:.4f} ms "
+              f"(device {tm['library_device_ms']} ms), bound "
+              f"{tm['bound_ms']:.4g} ms by {tm['bound_by']} on {smi}")
+    del captured, run, caches
+
+    # -- (c) the same model in f32: the kernel against the plain version ----
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    m32 = Model(cfg32, device="meta")
+    m32.load_state_dict({n: t.float() for n, t in model.state_dict().items()},
+                        assign=True)
+    del model
+    torch.cuda.empty_cache()
+
+    def f32_run(tamper=None):
+        logits, cache = m32.prefill(batch, cache_len=S + 1)
+        first = logits[:, -1].argmax(-1)[:, None]
+        if tamper is not None:
+            tamper(cache)
+        step, _ = m32.decode_step(first, cache, S)
+        torch.cuda.synchronize()
+        return torch.cat([logits, step], 1), first, \
+            step[:, -1].argmax(-1)[:, None]
+
+    reset_launches(counters)
+    logits_k, first_k, next_k = f32_run()
+    f32_counts = read_launches(counters)
+    check(f32_counts["flash_attention"] == n_pre + L_dec
+          and sum(f32_counts.values()) == n_pre + L_dec,
+          f"phase 9 (c): the f32 prefill and decode step missed the f32 "
+          f"kernel: {f32_counts}")
+    plain_flash = (lambda q, k, v, causal, window:
+                   flash_attention_plain(q, k, v, causal=causal,
+                                         window=window))
+    with _patched(layers, flash_attention=plain_flash):
+        logits_p, first_p, next_p = f32_run()
+    err = _err(logits_k, logits_p)
+    check(_close(logits_k, logits_p, F32_MODEL_TOL),
+          f"phase 9 (c): f32 logits on the kernel differ from the plain "
+          f"version's by {err:.4g}, past {_tol_text(F32_MODEL_TOL)}")
+    check(torch.equal(first_k, first_p) and torch.equal(next_k, next_p),
+          "phase 9 (c): greedy tokens on the kernel differ from the plain "
+          "version's")
+    top2 = torch.topk(logits_p[:, -1], 2).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+
+    # planted errors: the encoder's attention causal; each decoder layer's
+    # decode step on the next layer's cross k/v; the cross cache zeroed
+    def next_layers(cache):
+        kv = [(c["cross_k"], c["cross_v"]) for c in cache]
+        for i, c in enumerate(cache):
+            c["cross_k"], c["cross_v"] = kv[(i + 1) % len(kv)]
+
+    def zeroed(cache):
+        for c in cache:
+            c["cross_k"].zero_()
+            c["cross_v"].zero_()
+
+    causal_encoder = (lambda q, k, v, causal, window: op_flash(
+        q, k, v, causal or q.shape[2] == k.shape[2], window))
+    with _patched(layers, flash_attention=causal_encoder):
+        bad_causal, _, _ = f32_run()
+    planted = {"the encoder run causally": bad_causal,
+               "each decoder layer on the next layer's cross k/v":
+                   f32_run(next_layers)[0],
+               "the decode step's cross cache zeroed": f32_run(zeroed)[0]}
+    seen_err = []
+    for what, bad in planted.items():
+        check(not _close(bad, logits_p, F32_MODEL_TOL),
+              f"phase 9 (c): tolerance {_tol_text(F32_MODEL_TOL)} misses "
+              f"{what}")
+        seen_err.append(f"{what}: max abs err {_err(bad, logits_p):.4g}")
+    print(f"phase 9 (c): f32 prefill and decode step on the f32 kernel "
+          f"({f32_counts}) within {_tol_text(F32_MODEL_TOL)} of the plain "
+          f"version (max abs err {err:.4g}, logits up to "
+          f"{float(logits_p.abs().max()):.4g}); greedy tokens identical "
+          f"(smallest top-2 margin {margin:.4g}); refuses "
+          f"{'; '.join(seen_err)}; on {smi}")
+    del m32, planted
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention_sm90": dict(
+            times["encoder"], cross_decode=times["cross decode"],
+            launches_prefill=after_prefill["flash_attention_sm90"],
+            launches_decode=decode["flash_attention_sm90"],
+            max_abs_err=max(errs.values()),
+            max_abs_err_by_kind=errs,
+            device_ms_prefill=prof["prefill"]["flash_attention"],
+            share_prefill=shares["prefill"]["flash_attention"],
+            device_ms_decode_step=prof["decode step"]["flash_attention"],
+            share_decode_step=shares["decode step"]["flash_attention"],
+            copied_bytes_prefill=copies["prefill"],
+            copied_bytes_decode_step=copies["decode step"],
+            prefill_bound_ms=pre_bound, decode_step_bound_ms=dec_bound),
+        "flash_attention": {"launches_f32_prefill_and_step":
+                            f32_counts["flash_attention"],
+                            "max_abs_err_f32_logits": err},
+    }
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "core").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -2647,6 +3043,8 @@ def main() -> int:
     p7 = phase7(dev, smi)
     # -- phase 8: the recurrent families on the serving path ----------------
     p8 = dict(phase8(dev, smi), **{SERVE_ARCH: p7})
+    # -- phase 9: the encoder-decoder family on the serving path -------------
+    p8[WHISPER_ARCH] = phase9(dev, smi)
     for k in kernels:
         path = {arch: res[k["name"]] for arch, res in p8.items()
                 if k["name"] in res}

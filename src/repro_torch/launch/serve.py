@@ -4,9 +4,11 @@
         --device cpu
 
 Port of ``src/repro/launch/serve.py``: prompts drawn from ``--seed`` with
-numpy (tokens, then the patch frontend's embeddings), one prefill with a
-cache of ``prompt_len + steps`` positions, then ``steps - 1`` decode steps
-at positions ``S + i``, each feeding back the argmax over the padded vocab.
+numpy (tokens, then an encoder–decoder model's frame embeddings, then the
+patch frontend's embeddings), one prefill with a cache of ``prompt_len +
+steps`` positions (and an encoder–decoder model's cross k/v), then
+``steps - 1`` decode steps at positions ``S + i``, each feeding back the
+argmax over the padded vocab.
 Weights are random, drawn from ``--seed`` by a ``torch.Generator`` on the
 device.  The model runs on ``--device`` (``cuda`` unless the caller asks
 for ``cpu``, where the kernels run their plain versions).
@@ -27,18 +29,27 @@ from ..models import Model
 
 
 def make_batch(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
-               device) -> Dict[str, torch.Tensor]:
+               device, enc_len: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
     """The reference launcher's prompts: ``tokens [B, S]`` (the text part
-    after the frontend's ``frontend_tokens`` when it has one) and the
-    frontend's ``embeds``."""
+    after the frontend's ``frontend_tokens`` when it has one), an
+    encoder–decoder model's frame embeddings ``enc_embeds [B, enc_len,
+    D]`` (``enc_len`` defaults to ``prompt_len``, as the reference draws
+    them) and the patch frontend's ``embeds``."""
     rng = np.random.default_rng(seed)
+    dtype = getattr(torch, cfg.compute_dtype)
     tokens = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
     out = {"tokens": torch.from_numpy(tokens).to(device)}
+    if cfg.encoder_decoder:
+        frames = rng.normal(size=(batch, enc_len or prompt_len,
+                                  cfg.d_model)) * 0.02
+        out["enc_embeds"] = torch.from_numpy(frames.astype(np.float32)).to(
+            device=device, dtype=dtype)
     if cfg.frontend == "patch":
         embeds = rng.normal(size=(batch, cfg.frontend_tokens,
                                   cfg.d_model)) * 0.02
         out["embeds"] = torch.from_numpy(embeds.astype(np.float32)).to(
-            device=device, dtype=getattr(torch, cfg.compute_dtype))
+            device=device, dtype=dtype)
         out["tokens"] = out["tokens"][:, cfg.frontend_tokens:]
     return out
 
@@ -53,7 +64,9 @@ def generate(model: Model, batch: Dict[str, torch.Tensor], steps: int
     """Greedy decode of ``steps`` tokens per prompt: the prefill's argmax,
     then ``steps - 1`` decode steps.  Returns the tokens ``[B, steps]``
     (on the CPU), the prefill's milliseconds and the decode's per step
-    (host clock around work that ends in a device synchronize)."""
+    (host clock around work that ends in a device synchronize).  ``S``,
+    the decoder's prompt, does not count an encoder's frames
+    (``enc_embeds``)."""
     dev = model.device
     S = batch["tokens"].shape[1] + (
         batch["embeds"].shape[1] if "embeds" in batch
@@ -82,15 +95,18 @@ def generate(model: Model, batch: Dict[str, torch.Tensor], steps: int
 
 def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
           steps: int = 32, device=None, seed: int = 0,
-          model: Optional[Model] = None) -> Dict[str, object]:
+          model: Optional[Model] = None,
+          enc_len: Optional[int] = None) -> Dict[str, object]:
     """Build the model of ``cfg`` from ``seed`` on ``device`` (or take
-    ``model``), draw the prompts from ``seed`` and :func:`generate`.  The
-    result also holds the model and the batch."""
+    ``model``), draw the prompts from ``seed`` (an encoder–decoder model's
+    ``enc_len`` frames, ``prompt_len`` unless given) and
+    :func:`generate`.  The result also holds the model and the batch."""
     if model is None:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         model = Model(cfg, generator=gen, device=device)
-    batch_in = make_batch(cfg, batch, prompt_len, seed, model.device)
+    batch_in = make_batch(cfg, batch, prompt_len, seed, model.device,
+                          enc_len)
     out = generate(model, batch_in, steps)
     out.update(model=model, batch=batch_in)
     return out

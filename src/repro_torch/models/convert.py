@@ -6,9 +6,13 @@
 leading repeat axis for ``lax.scan``, and each group's body holds its blocks
 as ``slot0``, ``slot1``, ...  The port holds one block per layer, in the
 order of ``cfg.blocks()``, so layer ``l`` of group ``g`` at repeat ``r`` and
-slot ``i`` reads ``tree["groups"][g][f"slot{i}"]`` at index ``r``.  The
-tests load the result into :class:`~repro_torch.models.model.Model` to run
-both packages on the same weights.
+slot ``i`` reads ``tree["groups"][g][f"slot{i}"]`` at index ``r`` (a
+decoder block with cross-attention carries its ``norm_cross`` and
+``cross`` there too).  An encoder–decoder model's encoder is one group of
+one slot: encoder layer ``r`` reads ``tree["enc"]["groups"][0]["slot0"]``
+at index ``r``, and ``enc.final_norm`` reads ``tree["enc"]["final_norm"]``.
+The tests load the result into :class:`~repro_torch.models.model.Model`
+to run both packages on the same weights.
 """
 from __future__ import annotations
 
@@ -46,5 +50,10 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig
             for i in range(len(body)):
                 flat.update(_flat(group[f"slot{i}"], f"blocks.{layer}.", r))
                 layer += 1
+    if "enc" in tree:
+        (slots,) = tree["enc"]["groups"]
+        for r in range(cfg.enc_layers):
+            flat.update(_flat(slots["slot0"], f"enc.blocks.{r}.", r))
+        flat.update(_flat(tree["enc"]["final_norm"], "enc.final_norm."))
     # np.array copies: a view of a read-only JAX buffer is not writable
     return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}

@@ -1,18 +1,22 @@
 """Model primitives of the serving path: norms, RoPE, GQA attention
-(full/windowed prefill and one-token decode), SwiGLU/GELU FFN, the
-sort-based MoE, and the recurrent mixers RG-LRU, mLSTM and sLSTM.  Port
-of ``src/repro/models/layers.py`` for the decoder block kinds
-``ATTN``/``SWA``/``RGLRU``/``MLSTM``/``SLSTM`` + ``DENSE_FFN``/``MOE_FFN``.
+(causal, windowed or bidirectional prefill, one-token decode, and
+cross-attention on an encoder's k/v), SwiGLU/GELU FFN, the sort-based MoE,
+and the recurrent mixers RG-LRU, mLSTM and sLSTM.  Port of
+``src/repro/models/layers.py`` for the block kinds
+``ATTN``/``SWA``/``RGLRU``/``MLSTM``/``SLSTM`` + ``DENSE_FFN``/``MOE_FFN``,
+with or without cross-attention.
 
 Every function is a plain function over tensors and a parameter mapping
 ``p`` (name -> tensor, in the JAX package's layouts: ``x @ p["wq"]``); the
 ``nn.Module`` owners live in :mod:`repro_torch.models.model`.  Four
 products go through the port's hand-written kernels, by their public ops:
 
-* the prefill's self-attention core: :func:`repro_torch.kernels.
-  flash_attention` on ``[B, H, S, d]`` with kv repeated to ``H`` heads
-  (on the card the wgmma/TMA kernel for bf16, the CUDA-core kernel for
-  f32; on CPU tensors the plain version);
+* the prefill's self-attention core (causal, windowed, or bidirectional
+  in an encoder) and every cross-attention core, in the prefill and in
+  each decode step: :func:`repro_torch.kernels.flash_attention` on
+  ``[B, H, S, d]`` with kv repeated to ``H`` heads, ``Sq != Sk`` for
+  cross-attention (on the card the wgmma/TMA kernel for bf16, the
+  CUDA-core kernel for f32; on CPU tensors the plain version);
 * every expert product of the MoE: :func:`repro_torch.kernels.moe_gmm` on
   the capacity buffer ``[E, C, D] @ [E, D, F]`` with ``counts[e]`` the rows
   kept for expert ``e``;
@@ -22,12 +26,10 @@ products go through the port's hand-written kernels, by their public ops:
   :func:`repro_torch.kernels.mlstm_chunk` on ``[B·H, S, hd]``, its
   normalizer carried by a column of ones in ``v`` (:func:`mlstm_chunked`).
 
-The decode's attention against the cache, the per-step mLSTM and the
-sLSTM stay plain torch ops: the JAX package computes them outside any
-Pallas kernel (the attention kernel assumes aligned q and k positions).
-
-Not in this slice: cross-attention (the model refuses those blocks,
-:mod:`repro_torch.models.model`).
+The decode's self-attention against the cache, the per-step mLSTM and
+the sLSTM stay plain torch ops: the JAX package computes them outside any
+Pallas kernel (the attention kernel assumes aligned q and k positions;
+cross-attention has no positions to align, so its decode runs the kernel).
 """
 from __future__ import annotations
 
@@ -159,12 +161,13 @@ def repeat_kv(k, n_heads: int):
     return k.repeat_interleave(G, dim=2) if G > 1 else k
 
 
-def attention(x, p: Params, cfg: ModelConfig, *,
+def attention(x, p: Params, cfg: ModelConfig, *, causal: bool = True,
               window: Optional[int] = None, positions=None):
-    """Causal (windowed when ``window``) self-attention over x [B,S,D];
-    the core runs on the flash attention kernel.  Returns ``(y, k, v)``
-    with the rotated keys and the values ``[B,S,Hkv,hd]`` that the cache
-    keeps (the JAX prefill projects them a second time)."""
+    """Self-attention over x [B,S,D]: causal (windowed when ``window``),
+    or bidirectional with ``causal=False`` (an encoder; RoPE on q and k
+    all the same); the core runs on the flash attention kernel.  Returns
+    ``(y, k, v)`` with the rotated keys and the values ``[B,S,Hkv,hd]``
+    that the cache keeps (the JAX prefill projects them a second time)."""
     B, S, D = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(B, S, h, hd)
@@ -175,9 +178,38 @@ def attention(x, p: Params, cfg: ModelConfig, *,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     o = flash_attention(q.transpose(1, 2), repeat_kv(k, h).transpose(1, 2),
-                        repeat_kv(v, h).transpose(1, 2), True,
+                        repeat_kv(v, h).transpose(1, 2), causal,
                         window)                             # [B,H,S,hd]
     return o.transpose(1, 2).reshape(B, S, h * hd) @ p["wo"], k, v
+
+
+def cross_kv(enc_out, p: Params, cfg: ModelConfig):
+    """The cross-attention keys and values of an encoder's output
+    ``[B, S_enc, D]``: head-major ``[B, Hkv, S_enc, hd]`` and contiguous,
+    as the cross cache keeps them (the JAX package keeps
+    ``[B, S_enc, Hkv, hd]``), so that every decode step's kernel call
+    reads them with no copy."""
+    B, S, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    k = (enc_out @ p["wk"]).reshape(B, S, hkv, hd)
+    v = (enc_out @ p["wv"]).reshape(B, S, hkv, hd)
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+
+def cross_attention(x, p: Params, cfg: ModelConfig, k, v):
+    """Cross-attention of x [B,S,D] on an encoder's ``k, v [B, Hkv, S_enc,
+    hd]`` (:func:`cross_kv`): no RoPE and no mask, as the JAX package's
+    ``attention(kv_override=...)``; the core runs on the flash attention
+    kernel with ``Sq = S`` (the prompt in the prefill, 1 in a decode
+    step) against ``Sk = S_enc``."""
+    B, S, D = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, h, hd).transpose(1, 2)
+    G = h // k.shape[1]
+    if G > 1:
+        k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    o = flash_attention(q, k, v, False, None)                # [B,H,S,hd]
+    return o.transpose(1, 2).reshape(B, S, h * hd) @ p["wo"]
 
 
 def attention_decode(x, p: Params, cfg: ModelConfig, cache, pos: int, *,

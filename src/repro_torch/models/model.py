@@ -1,8 +1,10 @@
 """Model assembly of the serving path: embeddings, blocks, caches, prefill
-and decode.  Port of ``src/repro/models/model.py`` for the decoder-only
-families: attention (block kinds ``ATTN``/``SWA``), the recurrent mixers
-(``RGLRU``, ``MLSTM``, ``SLSTM``), each with ``DENSE_FFN``, ``MOE_FFN`` or
-``NO_FFN``, and the ``patch`` frontend stub.
+and decode.  Port of ``src/repro/models/model.py`` for every family:
+attention (block kinds ``ATTN``/``SWA``), the recurrent mixers (``RGLRU``,
+``MLSTM``, ``SLSTM``), each with ``DENSE_FFN``, ``MOE_FFN`` or ``NO_FFN``,
+the ``patch`` frontend stub, and the encoder–decoder family (whisper): a
+bidirectional :class:`Encoder` over the ``audio`` frontend's frame
+embeddings, and decoder blocks with cross-attention on its output.
 
 :class:`Model` is an ``nn.Module`` holding the embedding table (padded
 vocab rows), one :class:`Block` per layer in a plain ``ModuleList`` (the
@@ -16,9 +18,7 @@ only: parameters do not require gradients, and :meth:`Model.prefill` and
 
 A model lives on one device: ``cuda:0`` unless the caller names another
 (``device="cpu"`` runs the kernels' plain versions; ``"meta"`` allocates
-nothing, for parameter counts).  Cross-attention and the
-encoder–decoder family join the port in a later slice; building a model
-that holds one raises ``NotImplementedError``.
+nothing, for parameter counts).
 """
 from __future__ import annotations
 
@@ -34,19 +34,6 @@ from ..core.backends.base import resolve_device
 from . import layers as L
 
 Cache = Dict[str, torch.Tensor]
-
-#: the block kinds of later slices, and the slice that brings each
-LATER_SLICES = {
-    "cross_attn": "the encoder-decoder slice (whisper-large-v3)",
-    "encoder_decoder": "the encoder-decoder slice (whisper-large-v3)",
-}
-
-
-def _not_in_slice(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kind} is not in the port's serving slice yet: it joins with "
-        f"{LATER_SLICES[kind]} (ROADMAP.md)")
-
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
@@ -73,17 +60,16 @@ STATE_KEYS = {RGLRU: ("h", "conv"), MLSTM: ("C", "n", "m"),
 
 
 class Block(nn.Module):
-    """One decoder block: pre-norm mixer (attention or a recurrent cell)
-    and pre-norm FFN (dense, MoE or none), each added to the residual
-    stream.  An attention block's cache is its k/v; a recurrent block's
-    is its state, which the prefill returns and the decode updates in
-    place."""
+    """One block: pre-norm mixer (attention or a recurrent cell), pre-norm
+    cross-attention on an encoder's output where ``spec.cross_attn``, and
+    pre-norm FFN (dense, MoE or none), each added to the residual stream.
+    An attention block's cache is its k/v (and the encoder's cross k/v); a
+    recurrent block's is its state, which the prefill returns and the
+    decode updates in place."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, dtype, device,
                  generator):
         super().__init__()
-        if spec.cross_attn:
-            raise _not_in_slice("cross_attn")
         self.cfg, self.spec = cfg, spec
         self.window = cfg.window if spec.mixer == SWA else None
         self.norm1 = ParamDict(L.init_norm(cfg, dtype, device))
@@ -93,6 +79,10 @@ class Block(nn.Module):
         if init is None:
             raise ValueError(spec.mixer)
         self.mixer = ParamDict(init(cfg, dtype, device, generator))
+        if spec.cross_attn:
+            self.norm_cross = ParamDict(L.init_norm(cfg, dtype, device))
+            self.cross = ParamDict(L.init_attention(cfg, dtype, device,
+                                                    generator))
         if spec.ffn == DENSE_FFN:
             self.norm2 = ParamDict(L.init_norm(cfg, dtype, device))
             self.ffn = ParamDict(L.init_ffn(cfg, dtype, device, generator))
@@ -107,33 +97,42 @@ class Block(nn.Module):
             return min(self.window, seq_len)
         return seq_len
 
-    def init_cache(self, batch: int, seq_len: int, dtype, device) -> Cache:
+    def init_cache(self, batch: int, seq_len: int, dtype, device,
+                   enc_len: int = 0) -> Cache:
         """This block's zeroed cache: k/v ``[B, cache_len, Hkv, hd]`` for
         attention (a ring of ``min(window, seq_len)`` slots when
         windowed), else the recurrent state of the JAX package's
-        ``init_block_cache``."""
+        ``init_block_cache``; with cross-attention also ``cross_k`` /
+        ``cross_v`` ``[B, Hkv, enc_len, hd]`` (head-major, where the JAX
+        package keeps ``[B, enc_len, Hkv, hd]``)."""
         cfg = self.cfg
         f32 = dict(dtype=torch.float32, device=device)
         kind = self.spec.mixer
         if kind == RGLRU:
             dr = cfg.d_rnn or cfg.d_model
-            return {"h": torch.zeros((batch, dr), **f32),
-                    "conv": torch.zeros((batch, cfg.conv_width - 1, dr),
-                                        dtype=dtype, device=device)}
-        if kind == MLSTM:
+            c = {"h": torch.zeros((batch, dr), **f32),
+                 "conv": torch.zeros((batch, cfg.conv_width - 1, dr),
+                                     dtype=dtype, device=device)}
+        elif kind == MLSTM:
             hd = 2 * cfg.d_model // cfg.n_heads
-            return {"C": torch.zeros((batch, cfg.n_heads, hd, hd), **f32),
-                    "n": torch.zeros((batch, cfg.n_heads, hd), **f32),
-                    "m": torch.full((batch, cfg.n_heads), -1e30, **f32)}
-        if kind == SLSTM:
+            c = {"C": torch.zeros((batch, cfg.n_heads, hd, hd), **f32),
+                 "n": torch.zeros((batch, cfg.n_heads, hd), **f32),
+                 "m": torch.full((batch, cfg.n_heads), -1e30, **f32)}
+        elif kind == SLSTM:
             D = cfg.d_model
-            return {"c": torch.zeros((batch, D), **f32),
-                    "n": torch.ones((batch, D), **f32),
-                    "h": torch.zeros((batch, D), **f32),
-                    "m": torch.zeros((batch, D), **f32)}
-        shape = (batch, self.cache_len(seq_len), cfg.n_kv_heads, cfg.hd)
-        return {n: torch.zeros(shape, dtype=dtype, device=device)
-                for n in ("k", "v")}
+            c = {"c": torch.zeros((batch, D), **f32),
+                 "n": torch.ones((batch, D), **f32),
+                 "h": torch.zeros((batch, D), **f32),
+                 "m": torch.zeros((batch, D), **f32)}
+        else:
+            shape = (batch, self.cache_len(seq_len), cfg.n_kv_heads, cfg.hd)
+            c = {n: torch.zeros(shape, dtype=dtype, device=device)
+                 for n in ("k", "v")}
+        if self.spec.cross_attn:
+            shape = (batch, cfg.n_kv_heads, enc_len, cfg.hd)
+            c.update({n: torch.zeros(shape, dtype=dtype, device=device)
+                      for n in ("cross_k", "cross_v")})
+        return c
 
     def _recurrent(self, h, state=None):
         """The recurrent mixer over ``h``: (y, new state).  The layer is
@@ -141,6 +140,12 @@ class Block(nn.Module):
         layer = {RGLRU: L.rglru, MLSTM: L.mlstm,
                  SLSTM: L.slstm}[self.spec.mixer]
         return layer(h, self.mixer.p, self.cfg, state)
+
+    def _cross(self, x, k, v):
+        """x plus the cross-attention on an encoder's k/v ``[B, Hkv,
+        S_enc, hd]``."""
+        h = L.apply_norm(x, self.norm_cross.p, self.cfg)
+        return x + L.cross_attention(h, self.cross.p, self.cfg, k, v)
 
     def _ffn(self, x):
         if self.spec.ffn == NO_FFN:
@@ -150,28 +155,44 @@ class Block(nn.Module):
             return x + L.ffn(h, self.ffn.p, self.cfg)
         return x + L.moe_ffn(h, self.ffn.p, self.cfg)
 
-    def prefill(self, x, positions, cache_len: int):
-        """The block over the full prompt; returns (x, filled cache)."""
+    def encode(self, x, positions):
+        """An encoder block over the whole input: bidirectional attention
+        and the FFN; no cache."""
+        h = L.apply_norm(x, self.norm1.p, self.cfg)
+        y, _, _ = L.attention(h, self.mixer.p, self.cfg, causal=False,
+                              positions=positions)
+        return self._ffn(x + y)
+
+    def prefill(self, x, positions, cache_len: int, enc_out=None):
+        """The block over the full prompt, and cross-attention on
+        ``enc_out [B, S_enc, D]`` where the block has it and an encoder
+        output is given; returns (x, filled cache)."""
         cfg = self.cfg
         h = L.apply_norm(x, self.norm1.p, cfg)
         if self.spec.mixer in STATE_KEYS:
             y, state = self._recurrent(h)
             # copies of strided views (the conv tail, the mLSTM's n), so
             # that the cache does not hold the tensors they slice
-            return self._ffn(x + y), {n: t.contiguous()
-                                      for n, t in state.items()}
-        S = x.shape[1]
-        y, k, v = L.attention(h, self.mixer.p, cfg, window=self.window,
-                              positions=positions)
-        if cache_len >= S:
-            pad = (0, 0, 0, 0, 0, cache_len - S)
-            k, v = torch.nn.functional.pad(k, pad), \
-                torch.nn.functional.pad(v, pad)
-        else:  # windowed ring cache keeps the tail; slot(p) = p % cache_len
-            start = S - cache_len
-            k = torch.roll(k[:, start:], shifts=S % cache_len, dims=1)
-            v = torch.roll(v[:, start:], shifts=S % cache_len, dims=1)
-        return self._ffn(x + y), {"k": k.contiguous(), "v": v.contiguous()}
+            cache = {n: t.contiguous() for n, t in state.items()}
+        else:
+            S = x.shape[1]
+            y, k, v = L.attention(h, self.mixer.p, cfg, window=self.window,
+                                  positions=positions)
+            if cache_len >= S:
+                pad = (0, 0, 0, 0, 0, cache_len - S)
+                k, v = torch.nn.functional.pad(k, pad), \
+                    torch.nn.functional.pad(v, pad)
+            else:  # windowed ring cache keeps the tail; slot p % cache_len
+                start = S - cache_len
+                k = torch.roll(k[:, start:], shifts=S % cache_len, dims=1)
+                v = torch.roll(v[:, start:], shifts=S % cache_len, dims=1)
+            cache = {"k": k.contiguous(), "v": v.contiguous()}
+        x = x + y
+        if self.spec.cross_attn and enc_out is not None:
+            ck, cv = L.cross_kv(enc_out, self.cross.p, cfg)
+            x = self._cross(x, ck, cv)
+            cache.update(cross_k=ck, cross_v=cv)
+        return self._ffn(x), cache
 
     def decode(self, x, cache: Cache, pos: int):
         """One token; writes its k/v, or the new recurrent state, into
@@ -182,22 +203,51 @@ class Block(nn.Module):
             y, state = self._recurrent(h, {n: cache[n] for n in keys})
             for n in keys:
                 cache[n].copy_(state[n])
-            return self._ffn(x + y), cache
-        y, cache = L.attention_decode(h, self.mixer.p, self.cfg, cache, pos,
-                                      window=self.window)
-        return self._ffn(x + y), cache
+        else:
+            y, cache = L.attention_decode(h, self.mixer.p, self.cfg, cache,
+                                          pos, window=self.window)
+        x = x + y
+        if self.spec.cross_attn:
+            x = self._cross(x, cache["cross_k"], cache["cross_v"])
+        return self._ffn(x), cache
+
+
+#: the encoder's block: bidirectional attention and a dense FFN
+ENCODER_SPEC = BlockSpec(mixer=ATTN, ffn=DENSE_FFN)
+
+
+class Encoder(nn.Module):
+    """The encoder of an encoder–decoder model: ``cfg.enc_layers`` blocks
+    of ``ENCODER_SPEC``, each attending over the whole input (no mask),
+    then the final norm.  Port of the JAX package's ``params["enc"]``
+    with ``_apply_groups(causal=False)``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+        super().__init__()
+        self.cfg = cfg
+        self.blocks = nn.ModuleList(
+            Block(cfg, ENCODER_SPEC, dtype, device, generator)
+            for _ in range(cfg.enc_layers))
+        self.final_norm = ParamDict(L.init_norm(cfg, dtype, device))
+
+    def forward(self, x):
+        """x [B, S_enc, D] (the projected frames) -> the encoder's output
+        [B, S_enc, D]; RoPE over positions ``0 .. S_enc - 1``."""
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for blk in self.blocks:
+            x = blk.encode(x, positions)
+        return L.apply_norm(x, self.final_norm.p, self.cfg)
 
 
 class Model(nn.Module):
-    """A decoder-only model of ``cfg`` with parameters drawn from
-    ``generator`` (normal, the JAX package's scales) on ``device``."""
+    """A model of ``cfg`` with parameters drawn from ``generator`` (normal,
+    the JAX package's scales) on ``device``: a decoder, and an
+    :class:`Encoder` (``enc``) where ``cfg.encoder_decoder``."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
-        if cfg.encoder_decoder:
-            raise _not_in_slice("encoder_decoder")
         device = resolve_device(device)
         dtype = _dtype(cfg.param_dtype)
         self.cfg = cfg
@@ -215,6 +265,8 @@ class Model(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, spec, dtype, device, generator)
             for spec in cfg.blocks())
+        self.enc = Encoder(cfg, dtype, device, generator) \
+            if cfg.encoder_decoder else None
 
     @property
     def device(self) -> torch.device:
@@ -234,10 +286,13 @@ class Model(nn.Module):
         return (x @ w.to(x.dtype)).float()
 
     def _assemble_input(self, batch):
-        """tokens (+ stub-frontend embeds, prepended) -> (x [B,S,D],
-        positions).  The JAX package's loss mask waits for training."""
+        """tokens (+ stub-frontend embeds, prepended, except in an
+        encoder–decoder model, whose frontend feeds the encoder) -> (x
+        [B,S,D], positions).  The JAX package's loss mask waits for
+        training."""
         x = self._embed(batch["tokens"])
-        if self.frontend is not None and "embeds" in batch:
+        if self.frontend is not None and "embeds" in batch \
+                and not self.cfg.encoder_decoder:
             e = batch["embeds"].to(x.dtype) @ self.frontend.p["proj"] \
                 .to(x.dtype)
             x = torch.cat([e, x], dim=1)
@@ -245,22 +300,38 @@ class Model(nn.Module):
         return x, positions
 
     # -- caches ------------------------------------------------------------
-    def init_caches(self, batch: int, seq_len: int) -> List[Cache]:
+    def init_caches(self, batch: int, seq_len: int,
+                    enc_len: int = 0) -> List[Cache]:
         """Zeroed caches, one per block (:meth:`Block.init_cache`)."""
         return [blk.init_cache(batch, seq_len, self.compute_dtype,
-                               self.device) for blk in self.blocks]
+                               self.device, enc_len)
+                for blk in self.blocks]
 
     # -- serving entry points ----------------------------------------------
     @torch.no_grad()
-    def prefill(self, batch, *, cache_len: Optional[int] = None):
+    def encode(self, enc_embeds):
+        """The encoder's output ``[B, S_enc, D]`` of the frame embeddings
+        ``enc_embeds [B, S_enc, D]`` (through the frontend's projection)."""
+        dt = self.compute_dtype
+        return self.enc(enc_embeds.to(dt) @ self.frontend.p["proj"].to(dt))
+
+    @torch.no_grad()
+    def prefill(self, batch, *, cache_len: Optional[int] = None,
+                enc_out=None):
         """Process a full prompt; returns (last-position logits [B,1,Vp]
-        f32, caches)."""
+        f32, caches).  An encoder–decoder model runs its encoder over
+        ``batch["enc_embeds"]`` unless ``enc_out`` (:meth:`encode`) is
+        given, and its blocks' caches keep the cross k/v."""
         x, positions = self._assemble_input(batch)
+        if self.enc is not None and enc_out is None \
+                and "enc_embeds" in batch:
+            enc_out = self.encode(batch["enc_embeds"])
         S = x.shape[1]
         cache_len = cache_len or S
         caches = []
         for blk in self.blocks:
-            x, c = blk.prefill(x, positions, blk.cache_len(cache_len))
+            x, c = blk.prefill(x, positions, blk.cache_len(cache_len),
+                               enc_out)
             caches.append(c)
         x = L.apply_norm(x, self.final_norm.p, self.cfg)
         return self._logits(x[:, -1:, :]), caches

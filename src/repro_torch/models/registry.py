@@ -9,9 +9,13 @@ from __future__ import annotations
 from ..configs.base import ModelConfig
 from .model import Model
 
+#: the encoder's length that an encoder–decoder model serves: whisper's
+#: receptive field, 30 s of audio (the port's copy of the JAX registry's)
+WHISPER_CROSS_LEN = 1500
+
 
 def param_count(cfg: ModelConfig) -> int:
-    """Exact parameter count of ``Model(cfg)``."""
+    """Exact parameter count of ``Model(cfg)`` (an encoder's included)."""
     model = Model(cfg, device="meta")
     return sum(p.numel() for p in model.parameters())
 

@@ -104,6 +104,15 @@ BF16_ATTN_TOL = (1e-3, 2.0 ** -7)
     (1, 1, 257, 257, 256, False, 33, "f32"),
     (2, 1, 190, 250, 128, False, None, "f32"),
     (1, 2, 333, 129, 64, False, None, "f32"),
+    # whisper-large-v3's shapes (20 heads of 64, 1500 encoder frames): a
+    # decode step's cross-attention (one query: 127 rows of the q tile
+    # past Sq, zeros from TMA), in bf16 and f32; the prefill's
+    # cross-attention (64 text queries); the bidirectional encoder (the
+    # masked kv tail, 1500 mod 128 = 92 keys, in every q tile)
+    (1, 20, 1, 1500, 64, False, None, "bf16"),
+    (1, 20, 1, 1500, 64, False, None, "f32"),
+    (2, 20, 64, 1500, 64, False, None, "bf16"),
+    (1, 20, 1500, 1500, 64, False, None, "bf16"),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, H, Sq, Sk, d, causal,
                                               window, dt):

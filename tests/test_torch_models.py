@@ -13,13 +13,18 @@ dispatches (granite-moe-3b-a800m, ``moe_impl`` global and grouped),
 sliding-window attention with a prompt past its window, so that the ring
 cache rolls (h2o-danube-3-4b, window 16, 24 tokens), the patch frontend
 (internvl2-2b), RG-LRU blocks beside local attention past its window
-(recurrentgemma-2b, 24 tokens) and the mLSTM and sLSTM blocks (xlstm-125m,
-the per-step mLSTM and the chunked one in 3 chunks of 8).  mLSTM states
+(recurrentgemma-2b, 24 tokens), the mLSTM and sLSTM blocks (xlstm-125m,
+the per-step mLSTM and the chunked one in 3 chunks of 8) and the
+encoder–decoder family (whisper-large-v3: an encoder over 20 frames,
+cross-attention in the prefill and every decode step).  mLSTM states
 are compared as ``C·e^{m}`` and ``n·e^{m}``: the chunked form keeps them
-in another scaling (``repro_torch.models.layers.mlstm_chunked``).  The
+in another scaling (``repro_torch.models.layers.mlstm_chunked``); the
+port's cross k/v (``[B, Hkv, S_enc, hd]``) as the JAX package's
+``[B, S_enc, Hkv, hd]``, through a permute.  The
 JAX references are computed once per case (module-scoped fixture), from
 one JAX tree per architecture.  The recurrent layers alone, from a
-non-zero state, are in ``tests/test_torch_recurrent.py``.
+non-zero state, are in ``tests/test_torch_recurrent.py``; the encoder and
+cross-attention alone in ``tests/test_torch_whisper.py``.
 """
 import dataclasses
 import functools
@@ -52,6 +57,8 @@ ROOT = Path(__file__).resolve().parent.parent
 #: f32 on both sides: sums in another order stay far inside 1e-4
 ATOL = 1e-4
 B, DECODE_STEPS = 2, 3
+#: an encoder–decoder prompt's frames (another length than its text)
+ENC_LEN = 20
 #: (arch, config overrides, prompt length including frontend tokens)
 CASES = [("llama3.2-3b", {}, 16),
          ("granite-moe-3b-a800m", {"moe_impl": "global"}, 16),
@@ -60,13 +67,14 @@ CASES = [("llama3.2-3b", {}, 16),
          ("internvl2-2b", {}, 16),
          ("recurrentgemma-2b", {}, 24),
          ("xlstm-125m", {"mlstm_impl": "scan"}, 16),
-         ("xlstm-125m", {"mlstm_impl": "chunked", "mlstm_chunk": 8}, 24)]
+         ("xlstm-125m", {"mlstm_impl": "chunked", "mlstm_chunk": 8}, 24),
+         ("whisper-large-v3", {}, 16)]
 IDS = ["-".join([a, *map(str, over.values())]) for a, over, _ in CASES]
 #: the architectures whose block kinds are all in the slice
 IN_SLICE = ("llama3.2-3b", "granite-moe-3b-a800m", "glm4-9b",
             "h2o-danube-3-4b", "internvl2-2b", "mixtral-8x22b",
-            "llama3-405b", "recurrentgemma-2b", "xlstm-125m")
-OUT_OF_SLICE = ("whisper-large-v3",)
+            "llama3-405b", "recurrentgemma-2b", "xlstm-125m",
+            "whisper-large-v3")
 
 
 def _cfgs(arch, over):
@@ -77,6 +85,9 @@ def _cfgs(arch, over):
 def _prompt(cfg, S):
     rng = np.random.default_rng(7)
     out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S))}
+    if cfg.encoder_decoder:
+        out["enc_embeds"] = (rng.normal(size=(B, ENC_LEN, cfg.d_model))
+                             * 0.02).astype(np.float32)
     if cfg.frontend == "patch":
         out["embeds"] = (rng.normal(size=(B, cfg.frontend_tokens,
                                           cfg.d_model)) * 0.02
@@ -93,6 +104,14 @@ def _comparable(cache):
     w = np.exp(np.asarray(cache["m"], np.float64))
     return {"C": cache["C"] * w[..., None, None],
             "n": cache["n"] * w[..., None]}
+
+
+def _port_cache(cache):
+    """A layer's cache of the port (torch) as compared: numpy copies, the
+    cross k/v permuted to the JAX package's ``[B, S_enc, Hkv, hd]``."""
+    return _comparable({n: (t.permute(0, 2, 1, 3) if n.startswith("cross_")
+                            else t).numpy().copy()
+                        for n, t in cache.items()})
 
 
 def _flat_caches(caches, cfg):
@@ -149,13 +168,10 @@ def case(request, jax_trees):
 
     model = Model(cfg, device="cpu")
     model.load_state_dict(params_from_jax(tree, cfg))
-    batch = {"tokens": torch.from_numpy(prompt["tokens"])}
-    if "embeds" in prompt:
-        batch["embeds"] = torch.from_numpy(prompt["embeds"])
+    batch = {k: torch.from_numpy(v) for k, v in prompt.items()}
     logits, tcaches = model.prefill(batch, cache_len=cache_len)
     got = {"prefill": logits.numpy(),
-           "caches": [_comparable({n: c[n].numpy().copy() for n in c})
-                      for c in tcaches],
+           "caches": [_port_cache(c) for c in tcaches],
            "steps": [], "tokens": [logits[:, -1].argmax(-1)[:, None].numpy()]}
     for i in range(DECODE_STEPS):
         # both packages take the JAX greedy token of the step before
@@ -163,8 +179,7 @@ def case(request, jax_trees):
         logits, tcaches = model.decode_step(tok, tcaches, S + i)
         got["steps"].append(logits.numpy())
         got["tokens"].append(logits[:, -1].argmax(-1)[:, None].numpy())
-    got["decode_caches"] = [_comparable({n: c[n].numpy() for n in c})
-                            for c in tcaches]
+    got["decode_caches"] = [_port_cache(c) for c in tcaches]
     return {"cfg": cfg, "ref": ref, "got": got, "S": S}
 
 
@@ -256,12 +271,6 @@ def test_configs_equal_reference():
     assert {k: dataclasses.asdict(v) for k, v in base.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in ref_base.SHAPES.items()}
     assert configs.OPTIMIZED_PROFILE == ref_configs.OPTIMIZED_PROFILE
-
-
-@pytest.mark.parametrize("arch", OUT_OF_SLICE)
-def test_out_of_slice_blocks_raise(arch):
-    with pytest.raises(NotImplementedError, match="later|joins"):
-        Model(configs.get_smoke_config(arch), device="meta")
 
 
 def test_model_defaults_to_the_card():

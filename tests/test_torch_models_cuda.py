@@ -11,7 +11,10 @@ can load them).  The recurrent families likewise: recurrentgemma-2b
 (RG-LRU on the scan kernel in the prefill and every decode step, local
 attention on flash past its window) and xlstm-125m's production profile
 (the chunked mLSTM on ``mlstm_chunk`` in the prefill, the per-step decode
-and the sLSTM in plain ops).  The shim's legacy ``launch`` on a ``cuda``
+and the sLSTM in plain ops).  The encoder–decoder family: whisper-large-v3's
+smoke config (heads of 16), flash attention in the bidirectional encoder,
+the decoder's causal self-attention and the cross-attention of the prefill
+and of every decode step.  The shim's legacy ``launch`` on a ``cuda``
 session must give the interpreter's bits.
 
 Marked ``gpu``: without a CUDA device every test skips.  On a machine with
@@ -153,6 +156,34 @@ def test_recurrent_smoke_model_on_the_card_matches_cpu(arch, S, dtype, dev):
     assert ran["mlstm"] == kinds.count(MLSTM), ran
     route = "flash_f32" if dtype == torch.float32 else "flash_sm90"
     assert ran[route] == kinds.count(SWA), ran
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whisper_smoke_model_on_the_card_matches_cpu(dtype, dev):
+    """whisper-large-v3's smoke config over 40 text tokens and 150 frames:
+    the same weights on the CPU (plain versions) and the card (kernels),
+    fed the same tokens, a prefill and 3 decode steps."""
+    cfg = configs.get_smoke_config("whisper-large-v3")
+    ref = Model(cfg, generator=torch.Generator().manual_seed(0),
+                device="cpu")
+    cpu, gpu = _cast(ref, cfg, dtype, "cpu"), _cast(ref, cfg, dtype, dev)
+    batch = serve.make_batch(cfg, 2, 40, seed=5, device="cpu", enc_len=150)
+    steps = 4
+    want, tokens = _run(cpu, batch, steps)
+    before = _counts()
+    got, _ = _run(gpu, {k: v.to(dev) for k, v in batch.items()}, steps,
+                  tokens)
+    torch.cuda.synchronize()
+    ran = {k: _counts()[k] - before[k] for k in COUNTERS}
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+    route = "flash_f32" if dtype == torch.float32 else "flash_sm90"
+    # the prefill: each encoder layer, then each decoder layer's self- and
+    # cross-attention; each decode step: each decoder layer's
+    # cross-attention (its self-attention against the cache in plain ops)
+    runs = cfg.enc_layers + 2 * cfg.n_layers + cfg.n_layers * (steps - 1)
+    assert ran[route] == runs and sum(ran.values()) == runs, ran
 
 
 def test_legacy_shim_launch_on_cuda_is_bit_equal_to_interp(dev):

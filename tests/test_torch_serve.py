@@ -4,7 +4,9 @@ held against a greedy loop over the JAX package's ``prefill`` and
 smoke config (the MoE's global dispatch, serve's default) in f32, with
 JAX's ``init_params(jax.random.key(0), cfg)`` carried over by
 ``params_from_jax``; the generated tokens must be identical.  The command
-line runs too, with ``--device cpu``.
+line runs too, with ``--device cpu`` (whisper-large-v3's encoder–decoder
+among the archs), and the prompts, an encoder's frames among them, are
+the JAX launcher's draws.
 """
 import functools
 
@@ -80,7 +82,26 @@ def test_make_batch_is_the_reference_launchers():
     np.testing.assert_allclose(batch["embeds"].numpy(), embeds, rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "internvl2-2b"])
+def test_make_batch_draws_the_reference_launchers_frames():
+    """An encoder–decoder model's frames come after the tokens, as the JAX
+    launcher draws them: ``enc_len`` of them (``prompt_len`` unless
+    given), none of them cut from the text."""
+    cfg = configs.get_smoke_config("whisper-large-v3")
+    for enc_len in (None, 30):
+        batch = serve.make_batch(cfg, 2, 12, seed=4, device="cpu",
+                                 enc_len=enc_len)
+        rng = np.random.default_rng(4)
+        tokens = rng.integers(0, cfg.vocab_size, (2, 12))
+        frames = rng.normal(size=(2, enc_len or 12, cfg.d_model)) * 0.02
+        assert sorted(batch) == ["enc_embeds", "tokens"]
+        assert np.array_equal(batch["tokens"].numpy(), tokens)
+        assert batch["enc_embeds"].dtype == torch.float32
+        np.testing.assert_allclose(batch["enc_embeds"].numpy(), frames,
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "internvl2-2b",
+                                  "whisper-large-v3"])
 def test_cli_serves_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                       "--batch", "2", "--prompt-len", "20", "--steps", "3",
@@ -89,6 +110,9 @@ def test_cli_serves_on_cpu(arch, capsys):
     cfg = configs.get_smoke_config(arch)
     assert int(out["tokens"].max()) < cfg.padded_vocab
     assert "tokens/s" in capsys.readouterr().out
+    if cfg.encoder_decoder:   # the encoder's 20 frames in the cross cache
+        assert out["caches"][0]["cross_k"].shape == \
+            (2, cfg.n_kv_heads, 20, cfg.hd)
 
 
 def test_serve_defaults_to_the_card():
