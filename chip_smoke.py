@@ -120,10 +120,14 @@ card) and against the NumPy oracles:
    tolerances, rows past the counts (empty experts) exact zeros; the
    kernel, its plain version and the PyTorch call timed at the model's
    shapes; (c) the same weights in f32: a prefill and a decode step on
-   the f32 kernels against the same run with the harness patching the
+   the f32 kernels, bit-equal over two runs (the MoE combine adds in a
+   fixed order), against the same run with the harness patching the
    layers' two ops to their plain versions, logits within
-   ``F32_MODEL_TOL`` and the same greedy tokens, while the queries
-   rotated one position late and two experts swapped fall outside it.
+   ``F32_MODEL_TOL`` and the same greedy tokens, and within it again
+   when the kernels' run takes the plain run's expert choices (the two
+   runs' routing flips, where a token's K-th and (K+1)-th router logits
+   nearly tie, are printed), while the queries rotated one position late
+   and two experts swapped fall outside it.
 
 8. the recurrent families on the serving path at full width and depth,
    phase 7's three parts for two models (seeded random weights drawn on
@@ -146,10 +150,13 @@ card) and against the NumPy oracles:
    non-zero ``h0``), and the kernel, its plain version and (flash) SDPA
    with a band mask timed at the model's shapes; (c) a prefill and a
    decode step in f32 on the kernels against the same run on the plain
-   versions, logits within ``P8_MODELS``'s tolerance and the same greedy
-   tokens, while the RG-LRU decode step's ``h0`` dropped, the mLSTM's
-   forget gates one step late and its prefill state handed on in the
-   empty state's scaling fall outside it.
+   versions, logits within ``P8_MODELS``'s tolerance (xlstm-125m's
+   ``XLSTM_FLOOR_MULT`` times the rounding floor measured in the same
+   run) and the same greedy tokens, while the RG-LRU decode step's ``h0``
+   dropped, the mLSTM's forget gates one step late, its prefill state
+   handed on in the empty state's scaling and, with q and k 8 times
+   larger so that |q·n| passes 1, the normalizer's column of ones zeroed
+   fall outside it.
 
 9. the encoder–decoder family on the serving path at full width and
    depth: whisper-large-v3 (32 encoder and 32 decoder layers, d_model
@@ -174,8 +181,32 @@ card) and against the NumPy oracles:
    while the encoder run causally, each decoder layer's decode step on
    the next layer's cross k/v and a zeroed cross cache fall outside it.
 
+10. the training path at full width: granite-moe-3b-a800m (32 layers,
+   bf16 weights and f32 AdamW moments, 33 GB of state) trained by
+   ``repro_torch.runtime.Trainer`` (seed 0, remat: each block recomputed
+   in the backward pass) on batches of 4 x 1024 tokens: (a) 6 steps of
+   ``Trainer.run`` with a checkpoint after the 3rd (the JAX package's
+   format, about 33 GB): milliseconds a step, tokens/s, peak memory, the
+   launches of every step (64 ``flash_attention_sm90`` and 192
+   ``moe_gmm_sm90``), one profiled step (busy share, the kernels' device
+   time) against the step's bound, and one more step whose launches are
+   split at the end of the forward (32 and 96, then the same again in the
+   backward: the recompute; the kernels' own backward passes recompute
+   through their oracles and launch none); a fresh ``Trainer`` restores
+   the checkpoint, its state bit-equal to the saved one (checksums of
+   every tensor's bits), and its steps' losses bit-equal to the
+   uninterrupted run's; (b) 8 steps of ``make_train_step`` on one
+   repeated batch (warmup 1) must lower the loss by ``FIT_MARGIN``; (c)
+   one f32 train step at full width and 4 layers on the f32 kernels
+   against the same step on the plain versions: loss, gradient norm,
+   every parameter's gradient and update within ``F32_TRAIN_TOL``, while
+   the aux term dropped, the aux term divided by the number of layers
+   (a mean where the reference sums) and flash run non-causally fall
+   outside them.
+
 Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6,
-phase 8 after phase 7, phase 9 after phase 8.  Phase 4 also times
+phase 8 after phase 7, phase 9 after phase 8, phase 10 after phase 9.
+Phase 4 also times
 the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
 versions, and the one PyTorch call that computes the same function where
@@ -196,7 +227,10 @@ for it), ``device_ms`` the device time of its kernels alone (from
 The launch counts of the kernels are reset before phases 2-3 and read after
 them, reset before phase 5's main path and read after it, and reset before
 each serving run of phases 7, 8 and 9 and read at the end of its prefill
-and after it (``model_path`` in the kernels line, by model).  Any
+and after it (``model_path`` in the kernels line, by model), and reset
+before each train step of phase 10 and read after it, and for one step
+also at the end of its forward (``train_path``: the launches of one
+step).  Any
 mismatch or launch error ends the run with a non-zero code.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -355,11 +389,19 @@ F32_MODEL_TOL = (1e-3, 1e-3)
 #: and (c)'s tolerance of the f32 logits on the kernels against the plain
 #: versions: recurrentgemma-2b's differ only by flash attention's sums in
 #: another order (F32_MODEL_TOL, as phase 7); xlstm-125m's sLSTM layers
-#: amplify rounding about 400-fold each at random weights over 2048 steps:
-#: on an NVIDIA H100, the embeddings one f32 step (a factor 1 + 1e-7) off
-#: moved its logits by 0.032, the plain mLSTM in chunks of 64 instead of
-#: 128 by 0.012 (phase 8 (c) prints the latter each run)
+#: amplify rounding about 400-fold each at random weights over 2048 steps
+#: (on an NVIDIA H100, the embeddings one f32 step, a factor 1 + 1e-7,
+#: off moved its logits by 0.032), so its check is tied to the rounding
+#: floor that (c) measures each run: the plain versions in chunks of 64
+#: instead of 128, the same function in another rounding order (0.00741 on
+#: an NVIDIA H100 80GB HBM3 at 700 W, where the kernels were 0.01134 from
+#: the plain versions).  Its logits must lie within XLSTM_FLOOR_MULT times
+#: that floor, absolute, and never further than XLSTM_MODEL_TOL allows
 XLSTM_MODEL_TOL = (5e-2, 1e-2)
+XLSTM_FLOOR_MULT = 3.0
+#: the mLSTM normalizer's planted error (c): q and k 8 times larger, so
+#: that |q·n| passes 1 and its column of ones decides the output
+MLSTM_QK_SCALE = 8.0
 P8_MODELS = (("recurrentgemma-2b", "get_config", 2, 3072, F32_MODEL_TOL),
              ("xlstm-125m", "get_optimized_config", 8, 2048,
               XLSTM_MODEL_TOL))
@@ -370,6 +412,25 @@ P8_STEPS = 32
 #: prompt of 64 tokens, 32 steps
 WHISPER_ARCH, WHISPER_B, WHISPER_S, WHISPER_STEPS = \
     "whisper-large-v3", 4, 64, 32
+#: phase 10: granite-moe-3b-a800m (SERVE_ARCH) trained at full width and
+#: depth in bf16 through repro_torch.runtime.Trainer (seed 0, remat, the
+#: reference's Trainer defaults: AdamW with f32 moments, peak lr 1e-3),
+#: batches of 4 x 1024 tokens; 6 steps, a checkpoint after the 3rd
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_AT = 4, 1024, 6, 3
+#: (b) steps of the train step on one repeated batch (warmup 1, peak lr
+#: 1e-3), and the least fall of the loss, in nats, from the first to the
+#: last
+FIT_STEPS, FIT_MARGIN = 8, 1.0
+#: (c) one f32 train step at full width and FIT_LAYERS of depth (the f32
+#: state and the plain versions' autograd kept small), on the f32 kernels
+#: against the plain versions: the loss (absolute), the global gradient
+#: norm (relative), each parameter's gradient and update (relative L2).
+#: AdamW's update is about lr·sign(g) where |g| passes eps and lr·g/eps
+#: below, so a gradient entry at the rounding noise moves its update:
+#: updates are held looser than gradients
+F32_TRAIN_LAYERS = 4
+F32_TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad": 1e-3,
+                 "update": 1e-2}
 
 
 class SmokeFailure(Exception):
@@ -587,6 +648,16 @@ def _err(got, want) -> float:
                for g, w in zip(_outs(got), _outs(want)))
 
 
+def _excess(got, want, tol) -> float:
+    """The largest ``|got - want|`` over its allowance ``atol + rtol *
+    |want|`` (``tol`` as :func:`_close` takes it): within ``tol`` when at
+    most 1."""
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
+    return max(float(((g.float() - w.float()).abs()
+                      / (atol + rtol * w.float().abs())).max())
+               for g, w in zip(_outs(got), _outs(want)))
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -800,7 +871,7 @@ def library_cases(dev) -> list:
 
 
 def _tol_text(tol) -> str:
-    return f"{tol[0]} + {tol[1]:.4g}|x|" if isinstance(tol, tuple) \
+    return f"{tol[0]:.4g} + {tol[1]:.4g}|x|" if isinstance(tol, tuple) \
         else str(tol)
 
 
@@ -1751,8 +1822,22 @@ def phase7(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         return logits, first, step[:, -1].argmax(-1)[:, None]
 
+    # the prefill's expert choices in each run, by layer: router logits
+    # [B, S, E] and the chosen experts [B, S, K]
+    real_topk, K = layers.topk, cfg.moe.top_k
+
+    def routed(store):
+        def capture(logits, k):
+            vals, idx = real_topk(logits, k)
+            if logits.numel() == B * S * E:
+                store.append((logits.reshape(B, S, E), idx.reshape(B, S, k)))
+            return vals, idx
+        return _patched(layers, topk=capture)
+
+    route_k, route_p = [], []
     reset_launches(counters)
-    logits_k, first_k, next_k = f32_run()
+    with routed(route_k):
+        logits_k, first_k, next_k = f32_run()
     f32_counts = read_launches(counters)
     check(f32_counts["flash_attention"] == cfg.n_layers
           and f32_counts["moe_gmm"] == 2 * 3 * cfg.n_layers
@@ -1760,13 +1845,56 @@ def phase7(dev, smi: str) -> dict:
           and f32_counts["moe_gmm_sm90"] == 0,
           f"phase 7 (c): the f32 prefill and decode step missed the f32 "
           f"kernels: {f32_counts}")
+    # the MoE combine adds each token's contributions in a fixed order:
+    # the same weights and prompt give the same bits on every run
+    check(torch.equal(f32_run()[0], logits_k),
+          "phase 7 (c): a second f32 run on the kernels gave other logits")
     plain_flash = (lambda q, k, v, causal, window:
                    flash_attention_plain(q, k, v, causal=causal,
                                          window=window))
     with _patched(layers, flash_attention=plain_flash,
-                  moe_gmm=moe_gmm_plain):
+                  moe_gmm=moe_gmm_plain), routed(route_p):
         logits_p, first_p, next_p = f32_run()
     err = _err(logits_k, logits_p)
+    # where the two runs route a token to other experts (their rounding
+    # differs, and a token whose K-th and (K+1)-th router logits nearly
+    # tie can flip): (layer, row, position, that gap in the plain run).
+    # The prefill's logits are its last position's: a flip anywhere in a
+    # row reaches them
+    flips = []
+    for n, ((_, ik), (lp, ip)) in enumerate(zip(route_k, route_p)):
+        differ = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        for b, s in differ.nonzero().tolist():
+            v = lp[b, s].sort(descending=True).values
+            flips.append((n, b, s, float(v[K - 1] - v[K])))
+    # the kernels once more, routed as the plain versions routed
+    forced = iter(route_p)
+
+    def follow(logits, k):
+        if logits.numel() != B * S * E:
+            return real_topk(logits, k)
+        idx = next(forced)[1].reshape(*logits.shape[:-1], k)
+        return logits.gather(-1, idx), idx
+
+    with _patched(layers, topk=follow):
+        logits_f, _, _ = f32_run()
+    err_forced = _err(logits_f, logits_p)
+    check(_close(logits_f, logits_p, F32_MODEL_TOL),
+          f"phase 7 (c): routed as the plain versions routed, the f32 "
+          f"logits on the kernels differ from theirs by {err_forced:.4g}")
+    gap = (logits_k - logits_p).abs().reshape(B, -1)
+    at_b, at_v = divmod(int(gap.argmax()), gap.shape[1])
+    print(f"# phase 7 (c) routing: {len(flips)} (layer, token) expert sets "
+          f"differ between the kernels' and the plain versions' f32 "
+          f"prefill, {[(n, b, s, f'{g:.3g}') for n, b, s, g in flips[:8]]} "
+          f"(layer, row, position, K-th minus (K+1)-th router logit; "
+          f"smallest {min((f[3] for f in flips), default=0):.3g}, largest "
+          f"{max((f[3] for f in flips), default=0):.3g}); the logits' "
+          f"largest error {err:.4g} is row {at_b}'s token {at_v} (logit "
+          f"{float(logits_p.reshape(B, -1)[at_b, at_v]):.5g}), a row with "
+          f"{sum(f[1] == at_b for f in flips)} of them; routed as the plain "
+          f"versions routed, the kernels' logits are {err_forced:.4g} from "
+          f"theirs")
     check(_close(logits_k, logits_p, F32_MODEL_TOL),
           f"phase 7 (c): f32 logits on the kernels differ from the plain "
           f"versions' by {err:.4g}, past {_tol_text(F32_MODEL_TOL)}")
@@ -1797,10 +1925,14 @@ def phase7(dev, smi: str) -> dict:
         check(not _close(bad, logits_p, F32_MODEL_TOL),
               f"phase 7 (c): tolerance {_tol_text(F32_MODEL_TOL)} misses "
               f"{what}")
-        seen_err.append(f"{what}: max abs err {_err(bad, logits_p):.4g}")
-    print(f"phase 7 (c): f32 model on the f32 kernels ({f32_counts}) "
+        seen_err.append(f"{what}: max abs err {_err(bad, logits_p):.4g}, "
+                        f"{_excess(bad, logits_p, F32_MODEL_TOL):.4g} x "
+                        f"the tolerance")
+    print(f"phase 7 (c): f32 model on the f32 kernels ({f32_counts}), "
+          f"bit-equal over two runs, "
           f"within {_tol_text(F32_MODEL_TOL)} of the plain versions (max abs "
-          f"err {err:.4g}, logits up to "
+          f"err {err:.4g}, {_excess(logits_k, logits_p, F32_MODEL_TOL):.4g} "
+          f"x the tolerance; logits up to "
           f"{float(logits_p.abs().max()):.4g}); greedy tokens of the "
           f"prefill and first decode step identical (smallest top-2 margin "
           f"{margin:.4g}); refuses {'; '.join(seen_err)}; on {smi}")
@@ -2182,10 +2314,24 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
             mlstm_chunk_plain(q, k, v, lf, gi, bt=bt))
     with _patched(layers, **plain_ops):
         logits_p, first_p, next_p = f32_run()
+    floor_text = ""
+    if n_ml:   # the rounding floor: the plain mLSTM in chunks of 64
+        with _patched(layers, **dict(plain_ops, mlstm_chunk=lambda q, k, v,
+                                     lf, gi, bt: mlstm_chunk_plain(
+                                         q, k, v, lf, gi, bt=64))):
+            other, _, _ = f32_run()
+        floor = _err(other, logits_p)
+        check(floor > 0, f"{tag} (c): chunks of 64 and {cfg.mlstm_chunk} "
+              "gave the same logits: no rounding floor to tie to")
+        model_tol = (min(model_tol[0], XLSTM_FLOOR_MULT * floor), 0.0)
+        floor_text = (f" ({XLSTM_FLOOR_MULT:g} times the rounding floor: "
+                      f"the plain versions in chunks of 64 instead of "
+                      f"{cfg.mlstm_chunk} move the logits by {floor:.4g})")
     err = _err(logits_k, logits_p)
     check(_close(logits_k, logits_p, model_tol),
           f"{tag} (c): f32 logits on the kernels differ from the plain "
-          f"versions' by {err:.4g}, past {_tol_text(model_tol)}")
+          f"versions' by {err:.4g}, past {_tol_text(model_tol)}"
+          f"{floor_text}")
     check(torch.equal(first_k, first_p) and torch.equal(next_k, next_p),
           f"{tag} (c): greedy tokens on the kernels differ from the plain "
           "versions'")
@@ -2220,27 +2366,12 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
               f"{tag} (c): tolerance {_tol_text(model_tol)} misses "
               f"{what}")
         seen_err.append(f"{what}: max abs err {_err(bad, logits_p):.4g}")
-    if n_ml:   # the rounding floor: the plain mLSTM in chunks of 64
-        with _patched(layers, **dict(plain_ops, mlstm_chunk=lambda q, k, v,
-                                     lf, gi, bt: mlstm_chunk_plain(
-                                         q, k, v, lf, gi, bt=64))):
-            other, _, _ = f32_run()
-        print(f"# {tag} (c): the plain versions in chunks of 64 instead of "
-              f"{cfg.mlstm_chunk} (the same function, another rounding "
-              f"order) move the logits by {_err(other, logits_p):.4g}")
-    if n_ml:   # not a check: at these weights |q·n| < 1 and the clamp hides
-        def ones_zeroed(q, k, v, lf, gi, bt):
-            v = v.clone()
-            v[..., q.shape[-1]] = 0
-            return ops["mlstm"](q, k, v, lf, gi, bt)
-        with _patched(layers, mlstm_chunk=ones_zeroed):
-            bad, _, _ = f32_run()
-        print(f"# {tag} (c): the normalizer's ones column zeroed moves the "
-              f"logits by {_err(bad, logits_p):.4g} (max |q·n| of the "
-              f"captured calls {norm:.4g}: max(|q·n|, 1) is 1 there)")
+    if n_ml:
+        seen_err.append(_normalizer_planted(m32, f32_run, ops["mlstm"],
+                                            plain_ops, tag))
     print(f"{tag} (c): f32 prefill and decode step on the kernels "
-          f"({f32_counts}) within {_tol_text(model_tol)} of the plain "
-          f"versions (max abs err {err:.4g}, logits up to "
+          f"({f32_counts}) within {_tol_text(model_tol)}{floor_text} of the "
+          f"plain versions (max abs err {err:.4g}, logits up to "
           f"{float(logits_p.abs().max()):.4g}); greedy tokens identical "
           f"(smallest top-2 margin {margin:.4g}); refuses "
           f"{'; '.join(seen_err)}; on {smi}")
@@ -2280,6 +2411,71 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
             launches_f32_prefill_and_step=f32_counts["mlstm_chunk"],
             max_abs_err_f32_logits=err)
     return out
+
+
+def _normalizer_planted(m32, f32_run, op_mlstm, plain_ops, tag: str
+                        ) -> str:
+    """Phase 8 (c)'s planted mLSTM normalizer error.  At the drawn weights
+    |q·n| < 1, where ``h = q·C / max(|q·n|, 1)`` does not read the
+    normalizer; with q and k ``MLSTM_QK_SCALE`` times larger (the mLSTM
+    blocks' ``w_qkv`` columns, restored after) it passes 1.  The weights
+    change, and with them the sLSTM's amplification of rounding, so the
+    tolerance is tied to the rounding floor at these weights as (c) ties
+    it at the drawn ones.  There the kernels must stay within it of the
+    plain versions, and the kernel fed ``v`` with its column of ones
+    zeroed must not."""
+    import torch
+    from repro_torch.configs.base import MLSTM
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_plain
+    from repro_torch.models import layers
+    blocks = [b for b in m32.blocks if b.spec.mixer == MLSTM]
+    cols = 2 * 2 * m32.cfg.d_model            # q and k: 2 d_model each
+    qn = []
+
+    def mlstm_seen(q, k, v, lf, gi, bt):
+        y, c = op_mlstm(q, k, v, lf, gi, bt)
+        qn.append(float(y[..., q.shape[-1]].abs().max()))
+        return y, c
+
+    def ones_zeroed(q, k, v, lf, gi, bt):
+        v = v.clone()
+        v[..., q.shape[-1]] = 0
+        return op_mlstm(q, k, v, lf, gi, bt)
+
+    with torch.no_grad():
+        for b in blocks:
+            b.mixer.p["w_qkv"][:, :cols] *= MLSTM_QK_SCALE
+    try:
+        with _patched(layers, **plain_ops):
+            want, _, _ = f32_run()
+        with _patched(layers, **dict(plain_ops, mlstm_chunk=lambda q, k, v,
+                                     lf, gi, bt: mlstm_chunk_plain(
+                                         q, k, v, lf, gi, bt=64))):
+            other, _, _ = f32_run()
+        with _patched(layers, mlstm_chunk=mlstm_seen):
+            good, _, _ = f32_run()
+        with _patched(layers, mlstm_chunk=ones_zeroed):
+            bad, _, _ = f32_run()
+    finally:
+        with torch.no_grad():
+            for b in blocks:
+                b.mixer.p["w_qkv"][:, :cols] /= MLSTM_QK_SCALE
+    floor = _err(other, want)
+    tol = (min(XLSTM_MODEL_TOL[0], XLSTM_FLOOR_MULT * floor), 0.0)
+    check(max(qn) > 1.0, f"{tag} (c): q, k x {MLSTM_QK_SCALE:g} left max "
+          f"|q·n| at {max(qn):.4g}: the normalizer is not read")
+    check(floor > 0 and _close(good, want, tol),
+          f"{tag} (c): with q, k x {MLSTM_QK_SCALE:g} the kernels differ "
+          f"from the plain versions by {_err(good, want):.4g}, past "
+          f"{_tol_text(tol)} (rounding floor {floor:.4g})")
+    check(not _close(bad, want, tol),
+          f"{tag} (c): tolerance {_tol_text(tol)} misses the "
+          "normalizer's ones column zeroed")
+    return (f"the normalizer's ones column zeroed at q, k x "
+            f"{MLSTM_QK_SCALE:g} (max |q·n| {max(qn):.4g}; rounding floor "
+            f"{floor:.4g}, tolerance {_tol_text(tol)}, the kernels "
+            f"{_err(good, want):.4g} from the plain versions): max abs err "
+            f"{_err(bad, want):.4g}")
 
 
 def phase8(dev, smi: str) -> dict:
@@ -2653,6 +2849,336 @@ def phase9(dev, smi: str) -> dict:
         "flash_attention": {"launches_f32_prefill_and_step":
                             f32_counts["flash_attention"],
                             "max_abs_err_f32_logits": err},
+    }
+
+
+def _state_digest(model, opt) -> dict:
+    """Two checksums of the bits of every tensor of a train state (the
+    parameters, AdamW's moments and count), by name: each tensor's bits
+    as integers, summed, and summed weighted by position."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32}
+    tensors = dict(model.state_dict(), count=opt["count"])
+    for k in ("m", "v"):
+        tensors.update({f"{k}.{n}": t for n, t in opt[k].items()})
+    names = sorted(tensors)
+    sums = []
+    for n in names:
+        t = tensors[n]
+        bits = t.detach().reshape(-1).view(ints[t.element_size()]).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        sums.append(torch.stack([bits.sum(), (bits * w).sum()]))
+    return dict(zip(names, torch.stack(sums).tolist()))
+
+
+def _train_diff(got: dict, want: dict) -> dict:
+    """The largest differences of one f32 train step from another: loss
+    (absolute), global gradient norm (relative), and over the parameters
+    the gradient's and the update's relative L2."""
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+    return {"loss": abs(got["loss"] - want["loss"]),
+            "grad_norm": abs(got["grad_norm"] / want["grad_norm"] - 1),
+            "grad": max(rel(got["grads"][n], g)
+                        for n, g in want["grads"].items()),
+            "update": max(rel(got["update"][n], u)
+                          for n, u in want["update"].items())}
+
+
+def _diff_text(d: dict) -> str:
+    return ", ".join(f"{k} {v:.4g}" for k, v in d.items())
+
+
+def phase10(dev, smi: str) -> dict:
+    """Phase 10: the training path at granite-moe-3b-a800m's full width on
+    the card: (a) ``Trainer.run`` with a checkpoint and a restart, (b) the
+    loss falling on one batch, (c) one f32 step on the kernels against the
+    plain versions, with planted errors.  Returns the kernels line's
+    ``train_path`` entries, by kernel name."""
+    import contextlib
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import ParallelCfg, ShapeCfg
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_plain
+    from repro_torch.models import Model, layers
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import make_train_step
+    from repro_torch.parallel import steps as step_module
+    from repro_torch.runtime import Trainer
+
+    counters = launch_counters()
+    cfg = configs.get_config(SERVE_ARCH)
+    L, B, S = cfg.n_layers, TRAIN_B, TRAIN_S
+    D, H, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    E, Fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+    C = int(math.ceil(B * S * cfg.moe.top_k / E * cfg.moe.capacity_factor))
+    shape = ShapeCfg("phase10", S, B, "train")
+    ckpt = ROOT / "build" / "phase10_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- (a) Trainer.run: 6 steps, a checkpoint after the 3rd, a restart ----
+    tr = Trainer(cfg, shape, dev, ckpt_dir=ckpt, seed=0)
+    tr.init_state()
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    state_gb = sum(t.numel() * t.element_size() for t in (
+        *tr.model.parameters(), *tr.opt["m"].values(),
+        *tr.opt["v"].values())) / 1e9
+    print(f"# phase 10: {cfg.name} at full width and depth, {n_params} "
+          f"parameters in {tr.model.embed.dtype} and AdamW moments in "
+          f"{cfg.opt_state_dtype}: a state of {state_gb:.2f} GB (the "
+          f"process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+          f"the card); batch {B} x {S} tokens, remat, on {smi}")
+    step_ms, losses, peaks = [], [], []
+    digest = save_s = None
+    want_fwd = {"flash_attention_sm90": L, "moe_gmm_sm90": 3 * L}
+    try:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = tr.run(1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            total = read_launches(counters)
+            check(all(total[n] == 2 * want_fwd.get(n, 0) for n in total),
+                  f"phase 10 (a) step {i + 1}: expected twice {want_fwd} "
+                  f"launches (the forward and the recompute), got {total}")
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            losses += rep.losses
+            if tr.step == TRAIN_CKPT_AT:
+                t0 = time.perf_counter()
+                tr.save_checkpoint()
+                save_s = time.perf_counter() - t0
+                digest = _state_digest(tr.model, tr.opt)
+        check(all(math.isfinite(x) for x in losses),
+              f"phase 10 (a): losses {losses}")
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                         if f.is_file())
+        ms = statistics.median(step_ms[1:])
+        print(f"phase 10 (a): {TRAIN_STEPS} steps of Trainer.run: "
+              f"{ms:.3f} ms a step (median of steps 2-{TRAIN_STEPS}; the "
+              f"first {step_ms[0]:.1f} ms), {B * S / ms * 1e3:.1f} tokens/s, "
+              f"peak memory {max(peaks):.2f} GB; launches a step: "
+              f"{want_fwd} in the forward and again in the recompute; "
+              f"losses {[round(x, 6) for x in losses]}; on {smi}")
+        print(f"# phase 10 step ms: {[round(x, 3) for x in step_ms]}; "
+              f"checkpoint after step {TRAIN_CKPT_AT}: {ckpt_bytes} B "
+              f"written in {save_s:.2f} s")
+
+        # one profiled step: device busy share and the kernels' time
+        raw = profile_launch(lambda: tr.run(1))
+        prof = _by_kernel(raw)
+        # one more step: its launches split at the end of the forward, and
+        # the rows the experts keep (each layer's first grouped matmul)
+        live = []
+        op_gmm, fwd = layers.moe_gmm, tr.model.forward_train
+        after_fwd = {}
+
+        def gmm_rows(x, w, counts):
+            if x.shape[1] == C:
+                live.append(counts.clone())
+            return op_gmm(x, w, counts)
+
+        def forward_and_count(*a, **kw):
+            out = fwd(*a, **kw)
+            torch.cuda.synchronize()
+            after_fwd.update(read_launches(counters))
+            return out
+
+        reset_launches(counters)
+        with _patched(layers, moe_gmm=gmm_rows), \
+                _patched(tr.model, forward_train=forward_and_count):
+            tr.run(1)
+        total = read_launches(counters)
+        back = {n: total[n] - after_fwd[n] for n in total}
+        check(all(after_fwd[n] == back[n] == want_fwd.get(n, 0)
+                  for n in total),
+              f"phase 10 (a): expected {want_fwd} launches in the forward "
+              f"and the same again in the backward (the recompute; the "
+              f"backward's own oracles launch none), got {after_fwd} and "
+              f"{back}")
+        # the step's bound: three times the forward's products (forward,
+        # and the backward's two products per forward product; remat's
+        # recompute not counted) over the rows the experts keep and the
+        # vocabulary's live columns, against the bytes of AdamW's state in
+        # and out (bf16 weights, f32 moments read and written)
+        rows = sum(int(c.sum()) for c in live[:3 * L:3])
+        T = B * S
+        fwd_ops = (2.0 * T * D * (2 * H * hd + 2 * hkv * hd + E) * L
+                   + 2.0 * 3 * rows * D * Fe
+                   + 4.0 * hd * B * H * (S * (S + 1) / 2) * L
+                   + 2.0 * B * (S - 1) * D * cfg.vocab_size)
+        step_ops = 3 * fwd_ops
+        step_bytes = n_params * (2 + 4 + 4) * 2
+        bound_ms = max(step_ops / BF16_OPS_PER_S,
+                       step_bytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = "operations" if step_ops / BF16_OPS_PER_S \
+            >= step_bytes / HBM_BYTES_PER_S else "bytes"
+        busy = sum(prof.values())
+        print(f"# phase 10 profiled step: device busy {busy:.4f} ms of "
+              f"{ms:.4f} ms (busy share {busy / ms:.4f}): flash attention "
+              f"{prof['flash_attention']:.4f} ms "
+              f"({prof['flash_attention'] / ms:.4f}), moe_gmm "
+              f"{prof['moe_gmm']:.4f} ms ({prof['moe_gmm'] / ms:.4f}), other "
+              f"{prof['other']:.4f} ms on {smi}")
+        _print_others("train step", raw, 12)
+        print(f"# phase 10 bound: {bound_ms:.4f} ms by {bound_by} "
+              f"({step_ops:.6g} operations: 3 x a forward of "
+              f"{fwd_ops:.6g}, moe_gmm over {rows} kept rows; "
+              f"{step_bytes} B of weights and moments in and out) at 989 "
+              f"TFLOP/s and 3.35 TB/s; measured {ms / bound_ms:.2f}x the "
+              f"bound on {smi}")
+        del tr, fwd, forward_and_count, gmm_rows
+        torch.cuda.empty_cache()
+
+        # the restart: a fresh Trainer from the checkpoint
+        tb = Trainer(cfg, shape, dev, ckpt_dir=ckpt, seed=0)
+        t0 = time.perf_counter()
+        check(tb.maybe_restore() and tb.step == TRAIN_CKPT_AT,
+              f"phase 10 (a): no restore to step {TRAIN_CKPT_AT}")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(_state_digest(tb.model, tb.opt) == digest,
+              "phase 10 (a): the restored state is not the saved one, bit "
+              "for bit")
+        again = tb.run(TRAIN_STEPS - TRAIN_CKPT_AT).losses
+        want = losses[TRAIN_CKPT_AT:]
+        diff = max(abs(a - b) for a, b in zip(again, want))
+        # the step repeats bit for bit: its forward has no atomics; in its
+        # backward the indexing's scatters (index_put with accumulate) run
+        # on sorted indices, and the label gather's adds each element once
+        check(again == want,
+              f"phase 10 (a): restarted losses {again} against {want}: "
+              f"not bit-equal (max diff {diff:.3g})")
+        print(f"phase 10 (a): restarted from the step-{TRAIN_CKPT_AT} "
+              f"checkpoint in {restore_s:.2f} s: the state bit-equal to "
+              f"the saved one (checksums of {len(digest)} tensors), "
+              f"steps {TRAIN_CKPT_AT + 1}-{TRAIN_STEPS} lose {again}, "
+              f"bit-equal to the uninterrupted run's, on {smi}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    # -- (b) the loss falls on one repeated batch ------------------------------
+    fit = make_train_step(cfg, tb.pcfg, peak_lr=1e-3, warmup=1,
+                          total_steps=FIT_STEPS)
+    batch = tb.data.batch_at(0)
+    fit_losses = []
+    reset_launches(counters)
+    for i in range(FIT_STEPS):
+        _, tb.opt, metrics = fit(tb.model, tb.opt, batch, i)
+        fit_losses.append(float(metrics["loss"]))
+    fit_counts = read_launches(counters)
+    check(fit_counts["flash_attention_sm90"] == 2 * L * FIT_STEPS
+          and fit_counts["moe_gmm_sm90"] == 6 * L * FIT_STEPS,
+          f"phase 10 (b): launches {fit_counts}")
+    check(all(math.isfinite(x) for x in fit_losses)
+          and fit_losses[-1] <= fit_losses[0] - FIT_MARGIN,
+          f"phase 10 (b): the loss fell from {fit_losses[0]} to "
+          f"{fit_losses[-1]}, less than {FIT_MARGIN}")
+    print(f"phase 10 (b): {FIT_STEPS} steps of make_train_step on one "
+          f"batch (warmup 1, peak lr 1e-3): losses "
+          f"{[round(x, 4) for x in fit_losses]}, a fall of "
+          f"{fit_losses[0] - fit_losses[-1]:.4f} (at least {FIT_MARGIN}) "
+          f"on {smi}")
+    del tb, batch
+    torch.cuda.empty_cache()
+
+    # -- (c) one f32 step on the kernels against the plain versions ---------
+    body = cfg.layer_groups[0][1]
+    cfg32 = dataclasses.replace(
+        cfg, n_layers=F32_TRAIN_LAYERS,
+        layer_groups=((F32_TRAIN_LAYERS, body),),
+        param_dtype="float32", compute_dtype="float32")
+    m32 = Model(cfg32, generator=torch.Generator(device=dev).manual_seed(0),
+                device=dev)
+    init = {n: t.clone() for n, t in m32.state_dict().items()}
+    batch = SyntheticLMData(cfg32, shape, 0, device=dev).batch_at(0)
+    step32 = make_train_step(cfg32, ParallelCfg(remat=True), peak_lr=1e-3,
+                             warmup=1, total_steps=10)
+    real_update = step_module.adamw_update
+
+    def f32_step(**patch) -> dict:
+        with torch.no_grad():
+            for n, p in m32.named_parameters():
+                p.copy_(init[n])
+        seen = {}
+
+        def keep_grads(grads, opt_state, params, **kw):
+            seen.update({n: g.detach().clone() for n, g in grads.items()})
+            return real_update(grads, opt_state, params, **kw)
+
+        with _patched(step_module, adamw_update=keep_grads), \
+                (_patched(layers, **patch) if patch
+                 else contextlib.nullcontext()):
+            _, _, metrics = step32(m32, adamw_init(dict(
+                m32.named_parameters())), batch, 0)
+        torch.cuda.synchronize()
+        return {"loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]), "grads": seen,
+                "update": {n: p.detach() - init[n]
+                           for n, p in m32.named_parameters()}}
+
+    def within(d: dict) -> bool:
+        return all(d[k] <= F32_TRAIN_TOL[k] for k in F32_TRAIN_TOL)
+
+    reset_launches(counters)
+    kern = f32_step()
+    f32_counts = read_launches(counters)
+    check(f32_counts["flash_attention"] == 2 * F32_TRAIN_LAYERS
+          and f32_counts["moe_gmm"] == 6 * F32_TRAIN_LAYERS
+          and sum(f32_counts.values()) == 8 * F32_TRAIN_LAYERS,
+          f"phase 10 (c): the f32 step missed the f32 kernels: "
+          f"{f32_counts}")
+    plain = f32_step(
+        flash_attention=lambda q, k, v, causal, window:
+            flash_attention_plain(q, k, v, causal=causal, window=window),
+        moe_gmm=moe_gmm_plain)
+    d = _train_diff(kern, plain)
+    check(within(d), f"phase 10 (c): the f32 step on the kernels differs "
+          f"from the plain versions' ({_diff_text(d)}), past "
+          f"{F32_TRAIN_TOL}")
+    real_aux, op_flash = layers.moe_aux_loss, layers.flash_attention
+    planted = {
+        "the aux term dropped": dict(
+            moe_aux_loss=lambda x, p, c: torch.zeros((), device=x.device)),
+        "the aux term divided by the number of layers": dict(
+            moe_aux_loss=lambda x, p, c: real_aux(x, p, c) / c.n_layers),
+        "flash run non-causally": dict(
+            flash_attention=lambda q, k, v, causal, window: op_flash(
+                q, k, v, False, window))}
+    refused = []
+    for what, patch in planted.items():
+        bad = _train_diff(f32_step(**patch), plain)
+        check(not within(bad), f"phase 10 (c): tolerances "
+              f"{F32_TRAIN_TOL} miss {what} ({_diff_text(bad)})")
+        refused.append(f"{what}: {_diff_text(bad)}")
+    print(f"phase 10 (c): one f32 train step at full width and "
+          f"{F32_TRAIN_LAYERS} layers on the f32 kernels ({f32_counts}) "
+          f"within {F32_TRAIN_TOL} of the plain versions ({_diff_text(d)}; "
+          f"loss {plain['loss']:.6f}, gradient norm "
+          f"{plain['grad_norm']:.6f}); refuses {'; '.join(refused)}; on "
+          f"{smi}")
+    del m32, init, kern, plain
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention_sm90": {
+            "launches_per_step": 2 * L, "launches_forward": L,
+            "device_ms_step": prof["flash_attention"],
+            "share_step": prof["flash_attention"] / ms},
+        "moe_gmm_sm90": {
+            "launches_per_step": 6 * L, "launches_forward": 3 * L,
+            "device_ms_step": prof["moe_gmm"],
+            "share_step": prof["moe_gmm"] / ms},
+        "flash_attention": {
+            "launches_f32_step": f32_counts["flash_attention"]},
+        "moe_gmm": {"launches_f32_step": f32_counts["moe_gmm"]},
     }
 
 
@@ -3039,17 +3565,24 @@ def main() -> int:
     for k, mode in ((kernels[0], "scalar"), (kernels[1], "block")):
         k["phase6_launches"] = {part: c.get(mode, 0)
                                 for part, c in p6.items()}
-    # -- phase 7: the model stack's serving path at full width ----------------
-    p7 = phase7(dev, smi)
-    # -- phase 8: the recurrent families on the serving path ----------------
-    p8 = dict(phase8(dev, smi), **{SERVE_ARCH: p7})
-    # -- phase 9: the encoder-decoder family on the serving path -------------
-    p8[WHISPER_ARCH] = phase9(dev, smi)
+    # phases 7-9 serve: no autograd (the parameters require gradients)
+    with torch.no_grad():
+        # -- phase 7: the model stack's serving path at full width ----------
+        p7 = phase7(dev, smi)
+        # -- phase 8: the recurrent families on the serving path ------------
+        p8 = dict(phase8(dev, smi), **{SERVE_ARCH: p7})
+        # -- phase 9: the encoder-decoder family on the serving path --------
+        p8[WHISPER_ARCH] = phase9(dev, smi)
     for k in kernels:
         path = {arch: res[k["name"]] for arch, res in p8.items()
                 if k["name"] in res}
         if path:
             k["model_path"] = path
+    # -- phase 10: the training path at full width -----------------------------
+    p10 = phase10(dev, smi)
+    for k in kernels:
+        if k["name"] in p10:
+            k["train_path"] = {SERVE_ARCH: p10[k["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
-"""Model primitives of the serving path: norms, RoPE, GQA attention
-(causal, windowed or bidirectional prefill, one-token decode, and
-cross-attention on an encoder's k/v), SwiGLU/GELU FFN, the sort-based MoE,
-and the recurrent mixers RG-LRU, mLSTM and sLSTM.  Port of
-``src/repro/models/layers.py`` for the block kinds
+"""Model primitives of the serving and training paths: norms, RoPE, GQA
+attention (causal, windowed or bidirectional prefill, one-token decode,
+and cross-attention on an encoder's k/v), SwiGLU/GELU FFN, the sort-based
+MoE and its load-balancing loss, and the recurrent mixers RG-LRU, mLSTM
+and sLSTM.  Port of ``src/repro/models/layers.py`` for the block kinds
 ``ATTN``/``SWA``/``RGLRU``/``MLSTM``/``SLSTM`` + ``DENSE_FFN``/``MOE_FFN``,
 with or without cross-attention.
 
@@ -285,16 +285,26 @@ def moe_ffn(x, p: Params, cfg: ModelConfig):
     return moe_ffn_global(x, p, cfg)
 
 
+def topk(logits, K: int):
+    """The top ``K`` of ``logits [..., E]`` along the last dimension,
+    highest first, ties ranked lower index first, as ``lax.top_k`` ranks
+    them: the first ``K`` of a stable descending sort (``torch.topk``
+    ranks ties otherwise, and bf16 router logits do tie).  Returns
+    (values, indices)."""
+    values, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return values[..., :K], idx[..., :K]
+
+
 def _route(logits, K: int, E: int, C: int):
     """Top-k routing with a stable sort by expert, as the JAX dispatch
     computes it, over the last two dimensions of ``logits [..., T, E]``
     (``N = T * K`` entries): the softmaxed gates ``[..., T, K]``, the
     sort ``order [..., N]``, each sorted entry's expert ``sorted_e``, its
     rank within its expert and ``counts [..., E]``, the rows kept for each
-    expert (``min(routed, C)``).  Nothing here waits for the device.
-    Router logits that tie may be ranked otherwise than by ``lax.top_k``
-    (lower index first); continuous inputs tie with probability 0."""
-    gates, idx = torch.topk(logits, K, dim=-1)
+    expert (``min(routed, C)``).  The experts are :func:`topk`'s, so tied
+    logits pick the experts ``lax.top_k`` picks.  Nothing here waits for
+    the device."""
+    gates, idx = topk(logits, K)
     gates = torch.softmax(gates, dim=-1)
     flat_e = idx.reshape(*idx.shape[:-2], -1)
     order = torch.sort(flat_e, dim=-1, stable=True).indices
@@ -306,6 +316,28 @@ def _route(logits, K: int, E: int, C: int):
     rank = torch.arange(sorted_e.shape[-1], device=logits.device) \
         - torch.gather(starts, -1, sorted_e)
     return gates, order, sorted_e, rank, (ends - starts).clamp(max=C)
+
+
+def _combine(contrib, tok, K: int):
+    """Each token's output: the sum of its ``K`` contributions, which
+    ``contrib [..., N, D]`` holds in sorted-entry order (the stable sort
+    by expert), ``tok [..., N]`` naming each one's token.  The reference
+    scatter-adds them into zeros in that order, that is by expert
+    ascending; so do these adds, one after another in ``contrib``'s
+    type, with no atomics: the same bits on every run.  Returns
+    ``[..., T, D]``."""
+    lead, N = tok.shape[:-1], tok.shape[-1]
+    # each token's K sorted positions, ascending (by expert): a stable
+    # sort by token
+    where = torch.sort(tok, dim=-1, stable=True).indices
+    where = where.reshape(*lead, N // K, K)
+    rows = tuple(torch.arange(n, device=tok.device).reshape(
+        n, *(1,) * (len(lead) - i + 1)) for i, n in enumerate(lead))
+    parts = contrib[rows + (where,)]                      # [..., T, K, D]
+    out = torch.zeros_like(parts[..., 0, :])
+    for k in range(K):
+        out = out + parts[..., k, :]
+    return out
 
 
 def _expert_products(buf, p: Params, cfg: ModelConfig, counts):
@@ -345,9 +377,7 @@ def moe_ffn_global(x, p: Params, cfg: ModelConfig):
     gathered = out_buf[sorted_e, slot_c]                      # [T*K, D]
     w = gates.reshape(-1)[order] * keep.to(gates.dtype)
     contrib = gathered * w[:, None].to(gathered.dtype)
-    out = torch.zeros((T, D), dtype=contrib.dtype, device=x.device)
-    out.index_add_(0, tok, contrib)
-    return out.reshape(B, S, D).to(x.dtype)
+    return _combine(contrib, tok, K).reshape(B, S, D).to(x.dtype)
 
 
 def moe_ffn_grouped(x, p: Params, cfg: ModelConfig):
@@ -378,9 +408,24 @@ def moe_ffn_grouped(x, p: Params, cfg: ModelConfig):
     gathered = out_buf[brow, sorted_e, slot_c]                # [B,SK,D]
     w = torch.gather(gates.reshape(B, SK), 1, order) * keep.to(gates.dtype)
     contrib = gathered * w[..., None].to(gathered.dtype)
-    out = torch.zeros((B * S, D), dtype=contrib.dtype, device=x.device)
-    out.index_add_(0, (brow * S + tok).reshape(-1), contrib.reshape(-1, D))
-    return out.reshape(B, S, D).to(x.dtype)
+    return _combine(contrib, tok, K).to(x.dtype)
+
+
+def moe_aux_loss(x, p: Params, cfg: ModelConfig):
+    """Load-balancing auxiliary loss (Switch-style) of x [B,S,D]: the
+    experts' share of the routed entries (the :func:`topk` experts, as the
+    dispatch picks them) against their mean router probability, times
+    ``n_experts``; a scalar f32.  The shares count entries, so they carry
+    no gradient (as in the reference)."""
+    m = cfg.moe
+    T = x.shape[0] * x.shape[1]
+    logits = (x.reshape(T, -1) @ p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    _, idx = topk(logits, m.top_k)
+    counts = torch.bincount(idx.reshape(-1), minlength=m.n_experts).float()
+    frac_tokens = counts / (T * m.top_k)
+    frac_probs = probs.mean(dim=0)
+    return m.n_experts * torch.sum(frac_tokens * frac_probs)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Model assembly of the serving path: embeddings, blocks, caches, prefill
-and decode.  Port of ``src/repro/models/model.py`` for every family:
+"""Model assembly: embeddings, blocks, caches, the training forward,
+prefill and decode.  Port of ``src/repro/models/model.py`` for every family:
 attention (block kinds ``ATTN``/``SWA``), the recurrent mixers (``RGLRU``,
 ``MLSTM``, ``SLSTM``), each with ``DENSE_FFN``, ``MOE_FFN`` or ``NO_FFN``,
 the ``patch`` frontend stub, and the encoder–decoder family (whisper): a
@@ -12,9 +12,12 @@ JAX package stacks each layer group for ``lax.scan``), the final norm, the
 untied unembedding where the config has one, and the frontend projection.
 Parameters keep the JAX layouts and names, so ``state_dict()`` keys read
 like the JAX tree's paths (``blocks.3.mixer.wq`` for layer 3's
-``groups[g]["slot0"]["mixer"]["wq"][r]``; see :mod:`.convert`).  Serving
-only: parameters do not require gradients, and :meth:`Model.prefill` and
-:meth:`Model.decode_step` run without autograd.
+``groups[g]["slot0"]["mixer"]["wq"][r]``; see :mod:`.convert`).
+Parameters require gradients: :meth:`Model.forward_train` returns the loss
+with its graph, each block recomputed in the backward pass when ``remat``
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of each
+group body); :meth:`Model.encode`, :meth:`Model.prefill` and
+:meth:`Model.decode_step` serve, and run without autograd.
 
 A model lives on one device: ``cuda:0`` unless the caller names another
 (``device="cpu"`` runs the kernels' plain versions; ``"meta"`` allocates
@@ -27,6 +30,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import (ATTN, DENSE_FFN, MLSTM, MOE_FFN, NO_FFN, RGLRU,
                             SLSTM, SWA, BlockSpec, ModelConfig)
@@ -46,8 +50,7 @@ class ParamDict(nn.Module):
     def __init__(self, tensors: Dict[str, torch.Tensor]):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t,
-                                                       requires_grad=False))
+            self.register_parameter(name, nn.Parameter(t))
 
     @property
     def p(self) -> Dict[str, torch.Tensor]:
@@ -147,13 +150,34 @@ class Block(nn.Module):
         h = L.apply_norm(x, self.norm_cross.p, self.cfg)
         return x + L.cross_attention(h, self.cross.p, self.cfg, k, v)
 
-    def _ffn(self, x):
+    def _ffn(self, x, aux: Optional[list] = None):
+        """x plus the FFN; a MoE block appends its load-balancing loss to
+        ``aux`` when given."""
         if self.spec.ffn == NO_FFN:
             return x
         h = L.apply_norm(x, self.norm2.p, self.cfg)
         if self.spec.ffn == DENSE_FFN:
             return x + L.ffn(h, self.ffn.p, self.cfg)
+        if aux is not None:
+            aux.append(L.moe_aux_loss(h, self.ffn.p, self.cfg))
         return x + L.moe_ffn(h, self.ffn.p, self.cfg)
+
+    def forward_train(self, x, positions, enc_out=None):
+        """The block over a whole training sequence, with autograd:
+        returns (x, the MoE load-balancing loss or None).  The reference's
+        ``block_apply``."""
+        h = L.apply_norm(x, self.norm1.p, self.cfg)
+        if self.spec.mixer in STATE_KEYS:
+            y, _ = self._recurrent(h)
+        else:
+            y, _, _ = L.attention(h, self.mixer.p, self.cfg,
+                                  window=self.window, positions=positions)
+        x = x + y
+        if self.spec.cross_attn and enc_out is not None:
+            x = self._cross(x, *L.cross_kv(enc_out, self.cross.p, self.cfg))
+        aux: list = []
+        x = self._ffn(x, aux)
+        return x, (aux[0] if aux else None)
 
     def encode(self, x, positions):
         """An encoder block over the whole input: bidirectional attention
@@ -230,12 +254,14 @@ class Encoder(nn.Module):
             for _ in range(cfg.enc_layers))
         self.final_norm = ParamDict(L.init_norm(cfg, dtype, device))
 
-    def forward(self, x):
+    def forward(self, x, remat: bool = False):
         """x [B, S_enc, D] (the projected frames) -> the encoder's output
-        [B, S_enc, D]; RoPE over positions ``0 .. S_enc - 1``."""
+        [B, S_enc, D]; RoPE over positions ``0 .. S_enc - 1``.  With
+        ``remat`` each block is recomputed in the backward pass."""
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         for blk in self.blocks:
-            x = blk.encode(x, positions)
+            x = checkpoint(blk.encode, x, positions, use_reentrant=False) \
+                if remat else blk.encode(x, positions)
         return L.apply_norm(x, self.final_norm.p, self.cfg)
 
 
@@ -253,12 +279,11 @@ class Model(nn.Module):
         self.cfg = cfg
         s = 1.0 / math.sqrt(cfg.d_model)
         self.embed = nn.Parameter(L.normal(
-            (cfg.padded_vocab, cfg.d_model), s, dtype, device, generator),
-            requires_grad=False)
+            (cfg.padded_vocab, cfg.d_model), s, dtype, device, generator))
         self.final_norm = ParamDict(L.init_norm(cfg, dtype, device))
         self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
             L.normal((cfg.d_model, cfg.padded_vocab), s, dtype, device,
-                     generator), requires_grad=False)
+                     generator))
         self.frontend = None if cfg.frontend == "none" else ParamDict(
             {"proj": L.normal((cfg.d_model, cfg.d_model), s, dtype, device,
                               generator)})
@@ -267,6 +292,11 @@ class Model(nn.Module):
             for spec in cfg.blocks())
         self.enc = Encoder(cfg, dtype, device, generator) \
             if cfg.encoder_decoder else None
+        #: the layer group of each block (``cfg.layer_groups``, in the
+        #: order of ``cfg.blocks()``): the MoE loss sums over a group
+        self.group_of = [g for g, (repeat, body) in
+                         enumerate(cfg.layer_groups)
+                         for _ in range(repeat * len(body))]
 
     @property
     def device(self) -> torch.device:
@@ -288,16 +318,24 @@ class Model(nn.Module):
     def _assemble_input(self, batch):
         """tokens (+ stub-frontend embeds, prepended, except in an
         encoder–decoder model, whose frontend feeds the encoder) -> (x
-        [B,S,D], positions).  The JAX package's loss mask waits for
-        training."""
-        x = self._embed(batch["tokens"])
+        [B,S,D], positions, loss mask [B,S] f32: 0 on the frontend's
+        positions, 1 on the text)."""
+        tokens = batch["tokens"]
+        x = self._embed(tokens)
+        B, S_text = tokens.shape
+        ones = torch.ones((B, S_text), dtype=torch.float32, device=x.device)
         if self.frontend is not None and "embeds" in batch \
                 and not self.cfg.encoder_decoder:
             e = batch["embeds"].to(x.dtype) @ self.frontend.p["proj"] \
                 .to(x.dtype)
             x = torch.cat([e, x], dim=1)
+            mask = torch.cat([torch.zeros((B, e.shape[1]),
+                                          dtype=torch.float32,
+                                          device=x.device), ones], dim=1)
+        else:
+            mask = ones
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        return x, positions
+        return x, positions, mask
 
     # -- caches ------------------------------------------------------------
     def init_caches(self, batch: int, seq_len: int,
@@ -307,13 +345,59 @@ class Model(nn.Module):
                                self.device, enc_len)
                 for blk in self.blocks]
 
+    # -- training --------------------------------------------------------
+    def _encoder_out(self, enc_embeds, remat: bool = False):
+        dt = self.compute_dtype
+        return self.enc(enc_embeds.to(dt) @ self.frontend.p["proj"].to(dt),
+                        remat)
+
+    def forward_train(self, batch, *, remat: bool = True):
+        """Next-token cross-entropy over the text region (+ 0.01 times the
+        MoE load-balancing loss), a scalar f32 with its graph.  batch:
+        ``{"tokens": [B,S]}`` plus ``"embeds"`` for the patch frontend /
+        ``"enc_embeds"`` for an encoder–decoder model.  The reference's
+        ``forward_train``; with ``remat`` each block (and each encoder
+        block) is recomputed in the backward pass.
+
+        The MoE term is the reference's: one entry per layer group, the
+        sum of its blocks' losses, and ``0.01 * sum / n_groups`` (a sum
+        over the layers of a one-group model, not a mean)."""
+        enc_out = None
+        if self.enc is not None:
+            enc_out = self._encoder_out(batch["enc_embeds"], remat)
+        x, positions, mask = self._assemble_input(batch)
+        groups = [[] for _ in self.cfg.layer_groups] \
+            if self.cfg.moe is not None else None
+        for blk, g in zip(self.blocks, self.group_of):
+            x, aux = checkpoint(blk.forward_train, x, positions, enc_out,
+                                use_reentrant=False) if remat \
+                else blk.forward_train(x, positions, enc_out)
+            if groups is not None and aux is not None:
+                groups[g].append(aux)
+        x = L.apply_norm(x, self.final_norm.p, self.cfg)
+        tokens = batch["tokens"]
+        F = x.shape[1] - tokens.shape[1]
+        logits = self._logits(x[:, F:][:, :-1])          # [B, S-1, Vp] f32
+        labels = tokens[:, 1:].long()
+        lmask = mask[:, F + 1:]
+        # the label's logit by a gather: the reference's one-hot sum adds
+        # exact zeros to it
+        nll = torch.logsumexp(logits, dim=-1) \
+            - logits.gather(-1, labels[..., None])[..., 0]
+        loss = (nll * lmask).sum() / torch.clamp(lmask.sum(), min=1.0)
+        if groups:
+            per_group = [torch.stack(a).sum() if a else
+                         torch.zeros((), device=loss.device)
+                         for a in groups]
+            loss = loss + 0.01 * sum(per_group) / len(per_group)
+        return loss
+
     # -- serving entry points ----------------------------------------------
     @torch.no_grad()
     def encode(self, enc_embeds):
         """The encoder's output ``[B, S_enc, D]`` of the frame embeddings
         ``enc_embeds [B, S_enc, D]`` (through the frontend's projection)."""
-        dt = self.compute_dtype
-        return self.enc(enc_embeds.to(dt) @ self.frontend.p["proj"].to(dt))
+        return self._encoder_out(enc_embeds)
 
     @torch.no_grad()
     def prefill(self, batch, *, cache_len: Optional[int] = None,
@@ -322,7 +406,7 @@ class Model(nn.Module):
         f32, caches).  An encoder–decoder model runs its encoder over
         ``batch["enc_embeds"]`` unless ``enc_out`` (:meth:`encode`) is
         given, and its blocks' caches keep the cross k/v."""
-        x, positions = self._assemble_input(batch)
+        x, positions, _ = self._assemble_input(batch)
         if self.enc is not None and enc_out is None \
                 and "enc_embeds" in batch:
             enc_out = self.encode(batch["enc_embeds"])

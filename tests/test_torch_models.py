@@ -295,3 +295,65 @@ def test_new_packages_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+#: bf16 router logits that tie across the top-k boundary (granite's smoke
+#: MoE: 8 experts, top 4); torch.topk ranks such ties otherwise than
+#: lax.top_k, which takes the lower index first
+TIED_LOGITS = [[1, 2, 2, 2, 0.5, 0, 0, 0], [2, 2, 2, 2, 2, 2, 1, 0],
+               [0, 3, 1, 3, 1, 3, 1, 3], [1, 1, 1, 1, 1, 1, 1, 1]]
+#: bf16 MoE outputs near 0.1: the expert products and the combine round
+#: within two bf16 steps of the reference's
+TIE_ATOL = 4e-3
+
+
+@pytest.mark.parametrize("impl", ["global", "grouped"])
+def test_moe_routing_ranks_tied_logits_as_lax_top_k(impl):
+    """Tokens whose bf16 router logits are the rows of ``TIED_LOGITS``
+    (one-hot inputs pick a row of the router): the port's experts are
+    ``lax.top_k``'s, through ``layers.topk``, the dispatch and
+    ``moe_aux_loss``, each held against the JAX layer on the same bf16
+    inputs; with ``torch.topk`` in its place both fall outside."""
+    from repro.models import layers as ref_layers
+    from repro_torch.models import layers
+    ref_cfg, cfg = _cfgs("granite-moe-3b-a800m", {"moe_impl": impl})
+    E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    tied = np.asarray(TIED_LOGITS, np.float32)
+    rng = np.random.default_rng(0)
+    p = {"router": np.zeros((D, E), np.float32)}
+    p["router"][:len(tied)] = tied
+    f = cfg.moe.d_ff_expert
+    for name, shape in (("wg", (E, D, f)), ("wu", (E, D, f)),
+                        ("wd", (E, f, D))):
+        p[name] = (rng.normal(size=shape) * 0.3).astype(np.float32)
+    x = np.zeros((B, 8, D), np.float32)
+    rows = rng.integers(0, len(tied), (B, 8))
+    x[np.arange(B)[:, None], np.arange(8)[None], rows] = 1.0
+    jp = {k: jnp.asarray(v, jnp.bfloat16) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v).bfloat16() for k, v in p.items()}
+    jx, tx = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+
+    want_idx = np.asarray(jax.lax.top_k(jnp.asarray(tied), K)[1])
+    np.testing.assert_array_equal(
+        layers.topk(torch.from_numpy(tied), K)[1].numpy(), want_idx)
+    want = np.asarray(ref_layers.moe_ffn(jx, jp, ref_cfg)
+                      .astype(jnp.float32))
+    want_aux = float(ref_layers.moe_aux_loss(jx, jp, ref_cfg))
+
+    def run():
+        return (layers.moe_ffn(tx, tp, cfg).float().numpy(),
+                float(layers.moe_aux_loss(tx, tp, cfg)))
+
+    got, got_aux = run()
+    assert np.abs(got - want).max() <= TIE_ATOL
+    assert got_aux == pytest.approx(want_aux, rel=1e-6)
+    real = layers.topk
+    layers.topk = lambda logits, k: torch.topk(logits, k, dim=-1)
+    try:
+        assert not np.array_equal(
+            layers.topk(torch.from_numpy(tied), K)[1].numpy(), want_idx)
+        bad, bad_aux = run()
+    finally:
+        layers.topk = real
+    assert np.abs(bad - want).max() > TIE_ATOL
+    assert bad_aux != pytest.approx(want_aux, rel=1e-6)

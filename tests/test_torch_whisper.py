@@ -98,7 +98,7 @@ def setup():
 
 
 def _close(got, want, what):
-    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
     want = _np(want)
     assert got.shape == want.shape, (what, got.shape, want.shape)
     err = float(np.max(np.abs(got - want)))
