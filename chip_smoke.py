@@ -204,8 +204,29 @@ card) and against the NumPy oracles:
    (a mean where the reference sums) and flash run non-causally fall
    outside them.
 
+11. the multi-device layer on the card, whose one device is the ``(1,
+   1)`` mesh (``repro_torch.parallel.MeshRules`` on ``cuda:0``): (a)
+   granite-moe-3b-a800m at phase 7's shapes (batch 4 x 1024, bf16) served
+   by ``make_prefill_step`` and ``make_serve_step`` with the rules, its
+   logits and tokens bit-equal to ``Model.prefill`` /
+   ``Model.decode_step`` (phase 7's ``serve.generate``), and one step of
+   ``make_train_step(rules)`` bit-equal (loss, gradient norm, checksums of
+   the updated state) to the step without rules (phase 10's), with 32
+   ``flash_attention_sm90`` and 96 ``moe_gmm_sm90`` launches in the
+   prefill and 64 and 192 in the step; (b) live migration of the whole
+   job between the card and the host: ``Trainer`` runs 4 steps at phase
+   10's batch (the reference), then a fresh one runs 2, ``resize``s onto
+   the host and back onto the card (the seconds and bytes of each move,
+   the state's checksums equal on both sides of each move) and runs 2
+   more, losses bit-equal to the reference's; (c) the same in f32 at full
+   width and 2 layers on batches of 1 x 128: a step on the card, a step
+   on the host (the plain versions), a step on the card, within
+   ``F32_TRAIN_TOL`` of 3 steps on the card, while a resize that
+   re-initializes AdamW's moments falls outside it.
+
 Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6,
-phase 8 after phase 7, phase 9 after phase 8, phase 10 after phase 9.
+phase 8 after phase 7, phase 9 after phase 8, phase 10 after phase 9,
+phase 11 after phase 10.
 Phase 4 also times
 the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
@@ -230,7 +251,8 @@ each serving run of phases 7, 8 and 9 and read at the end of its prefill
 and after it (``model_path`` in the kernels line, by model), and reset
 before each train step of phase 10 and read after it, and for one step
 also at the end of its forward (``train_path``: the launches of one
-step).  Any
+step), and reset before each of phase 11's prefill, decode and train
+steps and read after it (``mesh_path``).  Any
 mismatch or launch error ends the run with a non-zero code.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -431,6 +453,16 @@ FIT_STEPS, FIT_MARGIN = 8, 1.0
 F32_TRAIN_LAYERS = 4
 F32_TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad": 1e-3,
                  "update": 1e-2}
+#: phase 11: the multi-device layer on the card's one-device mesh. (a)
+#: granite at phase 7's shapes through MeshRules and the steps, with
+#: MESH_STEPS tokens each; (b) the bf16 job at phase 10's batch moved card
+#: -> host -> card after MIGRATE_AT of MIGRATE_STEPS steps; (c) a step on
+#: each side in f32 at full width and MIGRATE_F32_LAYERS layers (the depth
+#: cut so that the host's step fits the time limit) on batches of
+#: MIGRATE_F32_B x MIGRATE_F32_S tokens, held to F32_TRAIN_TOL
+MESH_STEPS = 4
+MIGRATE_STEPS, MIGRATE_AT = 4, 2
+MIGRATE_F32_LAYERS, MIGRATE_F32_B, MIGRATE_F32_S = 2, 1, 128
 
 
 class SmokeFailure(Exception):
@@ -1939,6 +1971,7 @@ def phase7(dev, smi: str) -> dict:
     del m32
     torch.cuda.empty_cache()
     return {
+        "tokens": tokens.cpu(),
         "flash_attention_sm90": dict(
             times["flash_attention_sm90"],
             launches_prefill=after_prefill["flash_attention_sm90"],
@@ -2952,6 +2985,9 @@ def phase10(dev, smi: str) -> dict:
                   f"launches (the forward and the recompute), got {total}")
             peaks.append(torch.cuda.max_memory_allocated() / 1e9)
             losses += rep.losses
+            if i == 0:
+                first_step = {"loss": rep.losses[0],
+                              "digest": _state_digest(tr.model, tr.opt)}
             if tr.step == TRAIN_CKPT_AT:
                 t0 = time.perf_counter()
                 tr.save_checkpoint()
@@ -3168,6 +3204,7 @@ def phase10(dev, smi: str) -> dict:
     del m32, init, kern, plain
     torch.cuda.empty_cache()
     return {
+        "first_step": first_step,
         "flash_attention_sm90": {
             "launches_per_step": 2 * L, "launches_forward": L,
             "device_ms_step": prof["flash_attention"],
@@ -3179,6 +3216,261 @@ def phase10(dev, smi: str) -> dict:
         "flash_attention": {
             "launches_f32_step": f32_counts["flash_attention"]},
         "moe_gmm": {"launches_f32_step": f32_counts["moe_gmm"]},
+    }
+
+
+def _bit_sums(tensors: dict) -> dict:
+    """The sum of each tensor's bits as integers, by name, computed where
+    the tensor lies (a checksum cheap enough on the host)."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32}
+    return {n: int(t.detach().reshape(-1).view(ints[t.element_size()])
+                   .sum(dtype=torch.int64))
+            for n, t in tensors.items()}
+
+
+def _train_state(tr) -> dict:
+    """Every tensor of a trainer's state, by name."""
+    out = dict(tr.model.named_parameters(), count=tr.opt["count"])
+    for k in ("m", "v"):
+        out.update({f"{k}.{n}": t for n, t in tr.opt[k].items()})
+    return out
+
+
+def phase11(dev, smi: str, serve_tokens, first_step: dict) -> dict:
+    """Phase 11: the multi-device layer on the card's one-device mesh:
+    (a) the rules' prefill and serve steps give phase 7's tokens
+    (``serve_tokens``) and the rules' train step phase 10's first step
+    (``first_step``: its loss and state checksums), with the main path's
+    launches, (b) the bf16 job moved card -> host -> card mid-run,
+    bit-equal, (c) an f32 step on the host between two on the card,
+    within F32_TRAIN_TOL, with a planted error.  Returns the kernels
+    line's ``mesh_path`` entries, by kernel name."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import ParallelCfg, ShapeCfg
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import (MeshRules, make_prefill_step,
+                                      make_serve_step, make_train_step)
+    from repro_torch.parallel import steps as step_module
+    from repro_torch.runtime import Trainer
+
+    counters = launch_counters()
+    cfg = configs.get_config(SERVE_ARCH)
+    L = cfg.n_layers
+    pcfg = ParallelCfg(grad_accum=1, remat=True, seq_shard=False)
+    rules = MeshRules(cfg, pcfg, dev)
+    check(not rules.sharded and rules.axis_size == {"data": 1, "model": 1},
+          f"phase 11: the card is not the (1, 1) mesh: {rules.axis_size}")
+    torch.cuda.empty_cache()
+
+    # -- (a) the rules' steps against phases 7 and 10 ------------------------
+    # On one device the rules' steps are the one-device paths: this holds
+    # the dispatch and the launches, against the results phases 7 and 10
+    # computed in this process (phase 7 served with room for SERVE_STEPS)
+    B, S, steps = SERVE_B, SERVE_S, MESH_STEPS
+    model = Model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                  device=dev)
+    batch = serve.make_batch(cfg, B, S, 0, dev)
+    prefill = make_prefill_step(cfg, rules, cache_len=S + SERVE_STEPS)
+    serve_step = make_serve_step(cfg, rules)
+    with torch.no_grad():
+        reset_launches(counters)
+        logits, caches = prefill(model, batch)
+        torch.cuda.synchronize()
+        prefill_counts = read_launches(counters)
+        toks = [logits[:, -1].argmax(-1)[:, None]]
+        decode_counts = dict.fromkeys(prefill_counts, 0)
+        for i in range(steps - 1):
+            reset_launches(counters)
+            logits, caches = serve_step(model, toks[-1], caches, S + i)
+            torch.cuda.synchronize()
+            decode_counts = {n: decode_counts[n] + c for n, c in
+                             read_launches(counters).items()}
+            toks.append(logits[:, -1].argmax(-1)[:, None])
+    tokens = torch.cat(toks, dim=1).cpu()
+    check(torch.equal(tokens, serve_tokens[:, :steps]),
+          "phase 11 (a): the rules' prefill and serve steps generated other "
+          "tokens than phase 7's serve")
+    check(prefill_counts["flash_attention_sm90"] == L
+          and prefill_counts["moe_gmm_sm90"] == 3 * L
+          and sum(prefill_counts.values()) == 4 * L,
+          f"phase 11 (a) prefill: expected {L} flash_attention_sm90 and "
+          f"{3 * L} moe_gmm_sm90 launches, got {prefill_counts}")
+    del caches, logits
+
+    shape = ShapeCfg("phase11", TRAIN_S, TRAIN_B, "train")
+    tbatch = SyntheticLMData(cfg, shape, 0, device=dev).batch_at(0)
+    opt = adamw_init(dict(model.named_parameters()), cfg.opt_state_dtype)
+    train_step = make_train_step(cfg, pcfg, rules, peak_lr=1e-3)
+    reset_launches(counters)
+    _, opt, metrics = train_step(model, opt, tbatch, 0)
+    torch.cuda.synchronize()
+    train_counts = read_launches(counters)
+    loss = float(metrics["loss"])
+    check(loss == first_step["loss"]
+          and _state_digest(model, opt) == first_step["digest"],
+          f"phase 11 (a): make_train_step(rules) gave loss {loss!r} against "
+          f"phase 10's first step's {first_step['loss']!r}, or another "
+          f"state")
+    del model, opt, metrics
+    torch.cuda.empty_cache()
+    check(train_counts["flash_attention_sm90"] == 2 * L
+          and train_counts["moe_gmm_sm90"] == 6 * L
+          and sum(train_counts.values()) == 8 * L,
+          f"phase 11 (a) train step: expected {2 * L} flash_attention_sm90 "
+          f"and {6 * L} moe_gmm_sm90 launches, got {train_counts}")
+    print(f"phase 11 (a): {cfg.name} on the (1, 1) mesh of {dev} through "
+          f"MeshRules: prefill and {steps - 1} decode steps at {B} x {S} "
+          f"gave phase 7's first {steps} tokens (launches: prefill "
+          f"{prefill_counts}, decode {decode_counts}); one "
+          f"make_train_step(rules) step bit-equal to phase 10's first "
+          f"(loss {loss!r}, {len(first_step['digest'])} tensors' "
+          f"checksums; launches {train_counts}) on {smi}")
+
+    # -- (b) the bf16 job moved card -> host -> card mid-run -----------------
+    ref = Trainer(cfg, shape, dev, seed=0)
+    ref.init_state()
+    want_losses = ref.run(MIGRATE_STEPS).losses
+    want_digest = _state_digest(ref.model, ref.opt)
+    del ref
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg, shape, dev, seed=0)
+    tr.init_state()
+    losses = tr.run(MIGRATE_AT).losses
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in _train_state(tr).values())
+    before = _state_digest(tr.model, tr.opt)
+    sums = _bit_sums(_train_state(tr))
+    moves = []
+    for where in ("cpu", dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.resize(where)
+        torch.cuda.synchronize()
+        moves.append(time.perf_counter() - t0)
+        check(tr.step == MIGRATE_AT and tr.device == torch.device(where)
+              and _bit_sums(_train_state(tr)) == sums,
+              f"phase 11 (b): the state's bits changed in the move onto "
+              f"{where}")
+    check(_state_digest(tr.model, tr.opt) == before,
+          "phase 11 (b): the state came back to the card with other bits")
+    reset_launches(counters)
+    losses += tr.run(MIGRATE_STEPS - MIGRATE_AT).losses
+    torch.cuda.synchronize()
+    migrate_counts = read_launches(counters)
+    check(losses == want_losses
+          and _state_digest(tr.model, tr.opt) == want_digest,
+          f"phase 11 (b): losses {losses} against the unmoved run's "
+          f"{want_losses}, or another final state: not bit-equal")
+    print(f"phase 11 (b): {cfg.name} job ({state_bytes} B of bf16 weights "
+          f"and f32 moments) moved card -> host in {moves[0]:.3f} s "
+          f"({state_bytes / moves[0] / 1e9:.2f} GB/s) and host -> card in "
+          f"{moves[1]:.3f} s ({state_bytes / moves[1] / 1e9:.2f} GB/s) "
+          f"after step {MIGRATE_AT}; the state's checksums equal on both "
+          f"sides of each move; losses {losses} bit-equal to the unmoved "
+          f"run's; on {smi}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- (c) an f32 step on the host between two on the card -----------------
+    body = cfg.layer_groups[0][1]
+    cfg32 = dataclasses.replace(
+        cfg, n_layers=MIGRATE_F32_LAYERS,
+        layer_groups=((MIGRATE_F32_LAYERS, body),),
+        param_dtype="float32", compute_dtype="float32")
+    shape32 = ShapeCfg("phase11c", MIGRATE_F32_S, MIGRATE_F32_B, "train")
+    real_update = step_module.adamw_update
+
+    def run32(places, reinit=False) -> dict:
+        """Steps on ``places`` in turn (resizing between them) from seed
+        0; the losses, gradient norms, the last step's gradients and the
+        update of the 3 steps."""
+        tr = Trainer(cfg32, shape32, places[0], seed=0)
+        tr.init_state()
+        init = {n: p.detach().cpu().clone()
+                for n, p in tr.model.named_parameters()}
+        seen, out = {}, {"loss": [], "grad_norm": []}
+
+        def keep_grads(grads, opt_state, params, **kw):
+            seen.clear()
+            seen.update({n: g.detach().cpu().clone()
+                         for n, g in grads.items()})
+            _, opt_state, metrics = real_update(grads, opt_state, params,
+                                                **kw)
+            out["grad_norm"].append(float(metrics["grad_norm"]))
+            return params, opt_state, metrics
+
+        with _patched(step_module, adamw_update=keep_grads):
+            for i, where in enumerate(places):
+                if torch.device(where) != tr.device:
+                    tr.resize(where)
+                    if reinit:
+                        tr.opt = adamw_init(dict(tr.model.named_parameters()),
+                                            cfg32.opt_state_dtype)
+                out["loss"] += tr.run(1).losses
+        out["grads"] = seen
+        out["update"] = {n: p.detach().cpu() - init[n]
+                         for n, p in tr.model.named_parameters()}
+        return out
+
+    def diff(got, want) -> dict:
+        d = _train_diff(
+            {"loss": 0.0, "grad_norm": 1.0, "grads": got["grads"],
+             "update": got["update"]},
+            {"loss": 0.0, "grad_norm": 1.0, "grads": want["grads"],
+             "update": want["update"]})
+        d["loss"] = max(abs(a - b) for a, b in zip(got["loss"],
+                                                    want["loss"]))
+        d["grad_norm"] = max(abs(a / b - 1) for a, b in
+                             zip(got["grad_norm"], want["grad_norm"]))
+        return d
+
+    def within(d: dict) -> bool:
+        return all(d[k] <= F32_TRAIN_TOL[k] for k in F32_TRAIN_TOL)
+
+    card = run32([dev, dev, dev])
+    reset_launches(counters)
+    moved = run32([dev, "cpu", dev])
+    f32_counts = read_launches(counters)
+    check(f32_counts["flash_attention"] == 2 * 2 * MIGRATE_F32_LAYERS
+          and f32_counts["moe_gmm"] == 2 * 6 * MIGRATE_F32_LAYERS,
+          f"phase 11 (c): the two card steps missed the f32 kernels: "
+          f"{f32_counts}")
+    d = diff(moved, card)
+    check(within(d), f"phase 11 (c): a step on the host between two on the "
+          f"card differs from 3 on the card ({_diff_text(d)}), past "
+          f"{F32_TRAIN_TOL}")
+    bad = diff(run32([dev, "cpu", dev], reinit=True), card)
+    check(not within(bad), f"phase 11 (c): tolerances {F32_TRAIN_TOL} miss "
+          f"a resize that re-initializes AdamW's moments ({_diff_text(bad)})")
+    print(f"phase 11 (c): {cfg.name} in f32 at full width and "
+          f"{MIGRATE_F32_LAYERS} layers, batch {MIGRATE_F32_B} x "
+          f"{MIGRATE_F32_S}: card, host (plain versions), card within "
+          f"{F32_TRAIN_TOL} of three steps on the card ({_diff_text(d)}; "
+          f"losses {moved['loss']} against {card['loss']}); refuses a "
+          f"resize that re-initializes AdamW's moments ({_diff_text(bad)}); "
+          f"on {smi}")
+    torch.cuda.empty_cache()
+    return {
+        "flash_attention_sm90": {
+            "launches_prefill": prefill_counts["flash_attention_sm90"],
+            "launches_train_step": train_counts["flash_attention_sm90"],
+            "launches_migrated_steps":
+                migrate_counts["flash_attention_sm90"]},
+        "moe_gmm_sm90": {
+            "launches_prefill": prefill_counts["moe_gmm_sm90"],
+            "launches_decode": decode_counts["moe_gmm_sm90"],
+            "launches_train_step": train_counts["moe_gmm_sm90"],
+            "launches_migrated_steps": migrate_counts["moe_gmm_sm90"]},
+        "moe_gmm": {"launches_decode": decode_counts["moe_gmm"],
+                    "launches_f32_card_steps": f32_counts["moe_gmm"]},
+        "flash_attention": {
+            "launches_f32_card_steps": f32_counts["flash_attention"]},
     }
 
 
@@ -3569,6 +3861,7 @@ def main() -> int:
     with torch.no_grad():
         # -- phase 7: the model stack's serving path at full width ----------
         p7 = phase7(dev, smi)
+        serve_tokens = p7.pop("tokens")
         # -- phase 8: the recurrent families on the serving path ------------
         p8 = dict(phase8(dev, smi), **{SERVE_ARCH: p7})
         # -- phase 9: the encoder-decoder family on the serving path --------
@@ -3580,9 +3873,15 @@ def main() -> int:
             k["model_path"] = path
     # -- phase 10: the training path at full width -----------------------------
     p10 = phase10(dev, smi)
+    first_step = p10.pop("first_step")
     for k in kernels:
         if k["name"] in p10:
             k["train_path"] = {SERVE_ARCH: p10[k["name"]]}
+    # -- phase 11: the multi-device layer on the card's one-device mesh -------
+    p11 = phase11(dev, smi, serve_tokens, first_step)
+    for k in kernels:
+        if k["name"] in p11:
+            k["mesh_path"] = {SERVE_ARCH: p11[k["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,15 @@ and one ``.npy`` per leaf, written into ``.tmp_step_<N>`` and published by
 one atomic rename.  A leaf's key is its path in the state tree (dict keys
 sorted, list indices), ``/``-joined, and its file the key with ``__`` for
 ``/``; the manifest records each leaf's file, shape, numpy type string
-and partition spec (``null``: one device has no shards) and the caller's
-``extra``.
+and logical partition spec (the reference's JSON form: a list with one
+entry per dimension, an axis name, a list of names or null; ``null`` for
+a leaf saved without one) and the caller's ``extra``.
 The files are the reference's, so a checkpoint written by either package
-restores in the other: the port's trainer writes its parameters in the
-JAX tree's layout (:func:`repro_torch.models.params_to_jax`).
+restores in the other, on a mesh with its specs: the port's trainer
+writes its parameters in the JAX tree's layout
+(:func:`repro_torch.models.params_to_jax`) with the specs of
+:class:`repro_torch.parallel.MeshRules`, and :func:`restore` fits the
+stored specs onto the mesh it restores to, as the reference does.
 
 bf16 leaves: numpy has no bfloat16, and the reference's ``np.save`` of
 one writes the type string ``'<V2'`` (2-byte opaque records).  The port
@@ -32,6 +36,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..parallel.sharding import distribute, is_sharded, mesh_axes
 
 MANIFEST = "manifest.json"
 #: numpy's type string of a bf16 leaf (what the reference's np.save writes)
@@ -41,14 +48,17 @@ BF16_DESCR = "<V2"
 # -- tree <-> flat path helpers ---------------------------------------------
 
 
-def _flatten_with_paths(tree) -> Dict[str, Any]:
+def _flatten_with_paths(tree, spec_leaves: bool = False) -> Dict[str, Any]:
+    """Leaves by ``/``-joined path; with ``spec_leaves`` a tuple is a leaf
+    (a spec tree, whose specs are tuples)."""
     out = {}
 
     def walk(node, path):
         if isinstance(node, dict):
             for k in sorted(node):
                 walk(node[k], path + (str(k),))
-        elif isinstance(node, (list, tuple)):
+        elif isinstance(node, list) or (isinstance(node, tuple)
+                                         and not spec_leaves):
             for i, v in enumerate(node):
                 walk(v, path + (str(i),))
         else:
@@ -79,12 +89,23 @@ def _unflatten(flat: Dict[str, Any]):
     return lists(root)
 
 
+def _spec_to_json(spec) -> list:
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def _spec_from_json(obj) -> tuple:
+    return tuple(tuple(e) if isinstance(e, list) else e for e in obj)
+
+
 # -- leaves <-> .npy ----------------------------------------------------------
 
 
 def _host(leaf) -> Any:
-    """A leaf on the host: a torch tensor on the CPU (copied off a device)
-    or a numpy array."""
+    """A leaf on the host: a torch tensor on the CPU (copied off a device;
+    a ``DTensor`` gathered first, which every rank of its mesh must do
+    together) or a numpy array."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu()
     return np.asarray(leaf)
@@ -107,30 +128,51 @@ def _write_leaf(fname: Path, leaf) -> tuple:
 
 
 def _read_leaf(fname: Path) -> torch.Tensor:
-    arr = np.load(fname)
-    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:   # bf16 bits
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
+    """One leaf, read straight into memory of torch's own (aligned as its
+    tensors are: CPU matmuls round by the operands' alignment)."""
+    fmt = np.lib.format
+    with open(fname, "rb") as f:
+        version = fmt.read_magic(f)
+        shape, fortran, dtype = (fmt.read_array_header_1_0(f)
+                                 if version == (1, 0) else
+                                 fmt.read_array_header_2_0(f))
+        if fortran:
+            raise ValueError(f"{fname}: Fortran order is not supported")
+        if dtype.kind == "V" and dtype.itemsize == 2:       # bf16 bits
+            tdt = torch.bfloat16
+        else:
+            tdt = torch.from_numpy(np.empty(0, dtype)).dtype
+        t = torch.empty(shape, dtype=tdt)
+        buf = t.reshape(-1).view(torch.uint8).numpy()
+        if f.readinto(buf) != buf.nbytes:
+            raise ValueError(f"{fname}: truncated leaf")
+    return t
 
 
 # -- save / restore -----------------------------------------------------------
 
 
-def save(path, step: int, state, extra: Optional[dict] = None) -> None:
+def save(path, step: int, state, specs=None, extra: Optional[dict] = None
+         ) -> None:
     """Write a checkpoint of ``state`` (a tree of dicts and lists whose
-    leaves are torch tensors or numpy arrays)."""
+    leaves are torch tensors or numpy arrays).  ``specs``: the matching
+    tree of partition specs (tuples), recorded for the restore to fit."""
     path = Path(path)
     tmp = path / f".tmp_step_{step}"
     final = path / f"step_{step}"
     tmp.mkdir(parents=True, exist_ok=True)
 
     flat = _flatten_with_paths(state)
+    flat_specs = _flatten_with_paths(specs, spec_leaves=True) \
+        if specs is not None else {}
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
     for key, leaf in flat.items():
         fname = key.replace("/", "__") + ".npy"
         shape, dtype = _write_leaf(tmp / fname, _host(leaf))
-        manifest["leaves"][key] = {"file": fname, "shape": shape,
-                                   "dtype": dtype, "spec": None}
+        manifest["leaves"][key] = {
+            "file": fname, "shape": shape, "dtype": dtype,
+            "spec": _spec_to_json(flat_specs[key])
+            if key in flat_specs else None}
     (tmp / MANIFEST).write_text(json.dumps(manifest))
     if final.exists():
         shutil.rmtree(final)
@@ -146,15 +188,45 @@ def latest_step(path) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(path, step: int):
+def fit_spec(spec, shape, axis_size: Dict[str, int]) -> tuple:
+    """The reference's ``default_respec``: a stored spec fitted to a mesh
+    of ``axis_size`` (name -> size).  Axes the mesh lacks are dropped; an
+    entry left with one axis is kept where the axis divides the dimension
+    (a tuple of several is kept as it is); no spec: replicated."""
+    if spec is None:
+        return ()
+    fitted = []
+    for dim, entry in zip(shape, spec):
+        if entry is None:
+            fitted.append(None)
+            continue
+        axes = [a for a in (entry if isinstance(entry, tuple)
+                            else (entry,)) if a in axis_size]
+        n = 1
+        for a in axes:
+            n *= axis_size[a]
+        fitted.append(tuple(axes) if len(axes) > 1 else
+                      (axes[0] if axes else None)
+                      if dim % max(n, 1) == 0 else None)
+    return tuple(fitted)
+
+
+def restore(path, step: int, mesh=None):
     """Load the checkpoint of ``step``: (state, extra).  The state is the
-    tree of the leaves' paths (lists where the saved tree had lists),
-    its leaves torch tensors on the CPU; the specs are not read (one
-    device)."""
+    tree of the leaves' paths (lists where the saved tree had lists).  On
+    a mesh of several ranks (a ``DeviceMesh``) each leaf is a ``DTensor``
+    placed by its stored spec fitted to the mesh (:func:`fit_spec`);
+    otherwise the leaves are torch tensors on the CPU."""
     path = Path(path) / f"step_{step}"
     manifest = json.loads((path / MANIFEST).read_text())
-    flat = {key: _read_leaf(path / info["file"])
-            for key, info in manifest["leaves"].items()}
+    flat = {}
+    for key, info in manifest["leaves"].items():
+        t = _read_leaf(path / info["file"])
+        if mesh is not None and is_sharded(mesh):
+            spec = _spec_from_json(info["spec"]) if info["spec"] else None
+            t = distribute(t, mesh, fit_spec(spec, t.shape,
+                                             mesh_axes(mesh)))
+        flat[key] = t
     return _unflatten(flat), manifest["extra"]
 
 
@@ -170,14 +242,16 @@ class AsyncCheckpointer:
         self._errors: list = []
         self.saved_steps: list = []
 
-    def save(self, step: int, state, extra=None) -> None:
+    def save(self, step: int, state, specs=None, extra=None) -> None:
         self.wait()
-        # the flat dict of paths is itself a tree with the same paths
+        # the flat dicts of paths are themselves trees with the same paths
         host = {k: _host(v) for k, v in _flatten_with_paths(state).items()}
+        flat_specs = _flatten_with_paths(specs, spec_leaves=True) \
+            if specs is not None else None
 
         def work():
             try:
-                save(self.path, step, host, extra=extra)
+                save(self.path, step, host, specs=flat_specs, extra=extra)
                 self.saved_steps.append(step)
             except Exception as exc:          # re-raised by wait()
                 self._errors.append(exc)

@@ -2,10 +2,13 @@
 
 Port of ``src/repro/data/pipeline.py`` (numpy only, copied): batches are a
 pure function of (seed, step) through numpy's Philox counter RNG, with no
-iterator state, so a restarted job resumes mid-stream exactly, and its
-batches are bit-identical to the reference's.  Where the reference puts a
-batch on a mesh, the port moves it to one device (``device``); with no
-device it returns the numpy arrays.
+iterator state, so a restarted or migrated job resumes mid-stream
+exactly, and its batches are bit-identical to the reference's.  With a
+``mesh`` of several ranks and the batch's ``specs``
+(``MeshRules.batch_specs``) every rank makes the full batch and keeps
+its block of each leaf as a ``DTensor`` placed by its spec, as the
+reference places a batch on its mesh; otherwise the batch goes to one
+device (``device``), or stays numpy with neither.
 """
 from __future__ import annotations
 
@@ -15,15 +18,18 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, ShapeCfg
+from ..parallel.sharding import distribute, is_sharded
 
 
 class SyntheticLMData:
     def __init__(self, cfg: ModelConfig, shape: ShapeCfg, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None, specs=None):
         self.cfg = cfg
         self.shape = shape
         self.seed = seed
         self.device = device
+        self.mesh = mesh
+        self.specs = specs
         self.B = shape.global_batch
         self.S = shape.seq_len
 
@@ -50,9 +56,16 @@ class SyntheticLMData:
                 .astype(np.int32)}
 
     def batch_at(self, step: int):
-        """The batch of ``step``: torch tensors on ``device`` (the same
-        values and types), or the numpy arrays when no device was given."""
+        """The batch of ``step``: ``DTensor``s on the mesh, or torch
+        tensors on ``device`` (the same values and types), or the numpy
+        arrays when neither was given."""
         batch = self._numpy_batch(step)
+        if self.mesh is not None and self.specs is not None \
+                and is_sharded(self.mesh):
+            dev = self.device or "cpu"
+            return {k: distribute(torch.from_numpy(v).to(dev), self.mesh,
+                                  self.specs[k])
+                    for k, v in batch.items()}
         if self.device is None:
             return batch
         return {k: torch.from_numpy(v).to(self.device)

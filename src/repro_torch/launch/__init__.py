@@ -1,2 +1,3 @@
-"""Launchers of the port: ``serve`` (continuous batched greedy decode) and
-``train`` (the fault-tolerant train loop on one device)."""
+"""Launchers of the port: ``serve`` (continuous batched greedy decode),
+``train`` (the fault-tolerant train loop, on one device or over the ranks
+torchrun starts) and ``mesh`` (the production and test meshes)."""

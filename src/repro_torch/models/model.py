@@ -21,10 +21,16 @@ group body); :meth:`Model.encode`, :meth:`Model.prefill` and
 
 A model lives on one device: ``cuda:0`` unless the caller names another
 (``device="cpu"`` runs the kernels' plain versions; ``"meta"`` allocates
-nothing, for parameter counts).
+nothing, for parameter counts).  On a mesh of several ranks its
+parameters are ``DTensor`` shards and :attr:`Model.executor` (set by
+:meth:`repro_torch.parallel.executor.MeshExecutor.bind`) makes each
+module's parameters whole right before the module computes and drops
+them after, and exchanges the batch rows around each MoE layer; with no
+executor (one device) every hook below is a plain call.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional
 
@@ -57,6 +63,22 @@ class ParamDict(nn.Module):
         return self._parameters
 
 
+def _gathered(executor, module, names=None):
+    """A context in which ``module``'s parameters (only its own ones named
+    in ``names``, where given) are whole tensors for the compute: they are
+    on one device (no executor); a mesh executor gathers them."""
+    if executor is None:
+        return contextlib.nullcontext()
+    return executor.gathered(module, names)
+
+
+def _call(executor, module, fn, *args):
+    """``fn(*args)`` with ``module``'s parameters whole (:func:`_gathered`);
+    under remat the recompute calls it again, and gathers again."""
+    with _gathered(executor, module):
+        return fn(*args)
+
+
 #: the recurrent mixers, by block kind: the keys of their state (cache)
 STATE_KEYS = {RGLRU: ("h", "conv"), MLSTM: ("C", "n", "m"),
               SLSTM: ("c", "n", "h", "m")}
@@ -69,6 +91,9 @@ class Block(nn.Module):
     An attention block's cache is its k/v (and the encoder's cross k/v); a
     recurrent block's is its state, which the prefill returns and the
     decode updates in place."""
+
+    #: the mesh executor, which exchanges the batch rows around the MoE
+    executor = None
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, dtype, device,
                  generator):
@@ -152,15 +177,21 @@ class Block(nn.Module):
 
     def _ffn(self, x, aux: Optional[list] = None):
         """x plus the FFN; a MoE block appends its load-balancing loss to
-        ``aux`` when given."""
+        ``aux`` when given.  On a mesh the MoE routes every token of the
+        batch, as on one device: the executor gathers the rows of all
+        ranks before it and keeps this rank's after."""
         if self.spec.ffn == NO_FFN:
             return x
         h = L.apply_norm(x, self.norm2.p, self.cfg)
         if self.spec.ffn == DENSE_FFN:
             return x + L.ffn(h, self.ffn.p, self.cfg)
+        ex = self.executor
+        if ex is not None:
+            h = ex.gather_rows(h)
         if aux is not None:
             aux.append(L.moe_aux_loss(h, self.ffn.p, self.cfg))
-        return x + L.moe_ffn(h, self.ffn.p, self.cfg)
+        y = L.moe_ffn(h, self.ffn.p, self.cfg)
+        return x + (y if ex is None else ex.own_rows(y))
 
     def forward_train(self, x, positions, enc_out=None):
         """The block over a whole training sequence, with autograd:
@@ -246,6 +277,9 @@ class Encoder(nn.Module):
     then the final norm.  Port of the JAX package's ``params["enc"]``
     with ``_apply_groups(causal=False)``."""
 
+    #: the mesh executor (see :class:`Model`)
+    executor = None
+
     def __init__(self, cfg: ModelConfig, dtype, device, generator):
         super().__init__()
         self.cfg = cfg
@@ -259,16 +293,22 @@ class Encoder(nn.Module):
         [B, S_enc, D]; RoPE over positions ``0 .. S_enc - 1``.  With
         ``remat`` each block is recomputed in the backward pass."""
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        ex = self.executor
         for blk in self.blocks:
-            x = checkpoint(blk.encode, x, positions, use_reentrant=False) \
-                if remat else blk.encode(x, positions)
-        return L.apply_norm(x, self.final_norm.p, self.cfg)
+            x = checkpoint(_call, ex, blk, blk.encode, x, positions,
+                           use_reentrant=False) \
+                if remat else _call(ex, blk, blk.encode, x, positions)
+        with _gathered(ex, self.final_norm):
+            return L.apply_norm(x, self.final_norm.p, self.cfg)
 
 
 class Model(nn.Module):
     """A model of ``cfg`` with parameters drawn from ``generator`` (normal,
     the JAX package's scales) on ``device``: a decoder, and an
     :class:`Encoder` (``enc``) where ``cfg.encoder_decoder``."""
+
+    #: the mesh executor: None on one device
+    executor = None
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None,
@@ -308,12 +348,19 @@ class Model(nn.Module):
 
     # -- embedding / logits ------------------------------------------------
     def _embed(self, tokens):
-        return self.embed[tokens].to(self.compute_dtype)
+        with _gathered(self.executor, self, ("embed",)):
+            return self.embed[tokens].to(self.compute_dtype)
 
     def _logits(self, x):
         """f32 logits over the padded vocab."""
-        w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return (x @ w.to(x.dtype)).float()
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        with _gathered(self.executor, self, (name,)):
+            w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+            return (x @ w.to(x.dtype)).float()
+
+    def _final_norm(self, x):
+        with _gathered(self.executor, self.final_norm):
+            return L.apply_norm(x, self.final_norm.p, self.cfg)
 
     def _assemble_input(self, batch):
         """tokens (+ stub-frontend embeds, prepended, except in an
@@ -326,8 +373,9 @@ class Model(nn.Module):
         ones = torch.ones((B, S_text), dtype=torch.float32, device=x.device)
         if self.frontend is not None and "embeds" in batch \
                 and not self.cfg.encoder_decoder:
-            e = batch["embeds"].to(x.dtype) @ self.frontend.p["proj"] \
-                .to(x.dtype)
+            with _gathered(self.executor, self.frontend):
+                e = batch["embeds"].to(x.dtype) @ self.frontend.p["proj"] \
+                    .to(x.dtype)
             x = torch.cat([e, x], dim=1)
             mask = torch.cat([torch.zeros((B, e.shape[1]),
                                           dtype=torch.float32,
@@ -348,33 +396,32 @@ class Model(nn.Module):
     # -- training --------------------------------------------------------
     def _encoder_out(self, enc_embeds, remat: bool = False):
         dt = self.compute_dtype
-        return self.enc(enc_embeds.to(dt) @ self.frontend.p["proj"].to(dt),
-                        remat)
+        with _gathered(self.executor, self.frontend):
+            e = enc_embeds.to(dt) @ self.frontend.p["proj"].to(dt)
+        return self.enc(e, remat)
 
-    def forward_train(self, batch, *, remat: bool = True):
-        """Next-token cross-entropy over the text region (+ 0.01 times the
-        MoE load-balancing loss), a scalar f32 with its graph.  batch:
-        ``{"tokens": [B,S]}`` plus ``"embeds"`` for the patch frontend /
-        ``"enc_embeds"`` for an encoder–decoder model.  The reference's
-        ``forward_train``; with ``remat`` each block (and each encoder
-        block) is recomputed in the backward pass.
-
-        The MoE term is the reference's: one entry per layer group, the
-        sum of its blocks' losses, and ``0.01 * sum / n_groups`` (a sum
-        over the layers of a one-group model, not a mean)."""
+    def train_terms(self, batch, *, remat: bool = True):
+        """The parts of :meth:`forward_train`'s loss: the sum of the
+        next-token negative log-likelihoods over the text region (f32,
+        with its graph), the number of labels summed, and the MoE
+        load-balancing loss of each layer group (the sum of its blocks';
+        an empty list without MoE).  With ``remat`` each block (and each
+        encoder block) is recomputed in the backward pass."""
         enc_out = None
         if self.enc is not None:
             enc_out = self._encoder_out(batch["enc_embeds"], remat)
         x, positions, mask = self._assemble_input(batch)
         groups = [[] for _ in self.cfg.layer_groups] \
             if self.cfg.moe is not None else None
+        ex = self.executor
         for blk, g in zip(self.blocks, self.group_of):
-            x, aux = checkpoint(blk.forward_train, x, positions, enc_out,
-                                use_reentrant=False) if remat \
-                else blk.forward_train(x, positions, enc_out)
+            x, aux = checkpoint(_call, ex, blk, blk.forward_train, x,
+                                positions, enc_out, use_reentrant=False) \
+                if remat else _call(ex, blk, blk.forward_train, x,
+                                    positions, enc_out)
             if groups is not None and aux is not None:
                 groups[g].append(aux)
-        x = L.apply_norm(x, self.final_norm.p, self.cfg)
+        x = self._final_norm(x)
         tokens = batch["tokens"]
         F = x.shape[1] - tokens.shape[1]
         logits = self._logits(x[:, F:][:, :-1])          # [B, S-1, Vp] f32
@@ -384,11 +431,24 @@ class Model(nn.Module):
         # exact zeros to it
         nll = torch.logsumexp(logits, dim=-1) \
             - logits.gather(-1, labels[..., None])[..., 0]
-        loss = (nll * lmask).sum() / torch.clamp(lmask.sum(), min=1.0)
-        if groups:
-            per_group = [torch.stack(a).sum() if a else
-                         torch.zeros((), device=loss.device)
-                         for a in groups]
+        per_group = [torch.stack(a).sum() if a else
+                     torch.zeros((), device=nll.device)
+                     for a in groups or ()]
+        return (nll * lmask).sum(), lmask.sum(), per_group
+
+    def forward_train(self, batch, *, remat: bool = True):
+        """Next-token cross-entropy over the text region (+ 0.01 times the
+        MoE load-balancing loss), a scalar f32 with its graph.  batch:
+        ``{"tokens": [B,S]}`` plus ``"embeds"`` for the patch frontend /
+        ``"enc_embeds"`` for an encoder–decoder model.  The reference's
+        ``forward_train`` (:meth:`train_terms`).
+
+        The MoE term is the reference's: one entry per layer group, the
+        sum of its blocks' losses, and ``0.01 * sum / n_groups`` (a sum
+        over the layers of a one-group model, not a mean)."""
+        nll, count, per_group = self.train_terms(batch, remat=remat)
+        loss = nll / torch.clamp(count, min=1.0)
+        if per_group:
             loss = loss + 0.01 * sum(per_group) / len(per_group)
         return loss
 
@@ -414,10 +474,10 @@ class Model(nn.Module):
         cache_len = cache_len or S
         caches = []
         for blk in self.blocks:
-            x, c = blk.prefill(x, positions, blk.cache_len(cache_len),
-                               enc_out)
+            x, c = _call(self.executor, blk, blk.prefill, x, positions,
+                         blk.cache_len(cache_len), enc_out)
             caches.append(c)
-        x = L.apply_norm(x, self.final_norm.p, self.cfg)
+        x = self._final_norm(x)
         return self._logits(x[:, -1:, :]), caches
 
     @torch.no_grad()
@@ -427,7 +487,7 @@ class Model(nn.Module):
         caches updated in place."""
         x = self._embed(tokens)
         for blk, c in zip(self.blocks, caches):
-            x, _ = blk.decode(x, c, int(pos))
-        x = L.apply_norm(x, self.final_norm.p, self.cfg)
+            x, _ = _call(self.executor, blk, blk.decode, x, c, int(pos))
+        x = self._final_norm(x)
         return self._logits(x), caches
 

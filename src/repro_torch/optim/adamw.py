@@ -41,14 +41,17 @@ def global_norm(tree: Tensors) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(grads: Tensors, opt_state: Dict[str, object],
                  params: Tensors, *, lr, weight_decay: float = 0.1,
-                 clip_norm: float = 1.0
+                 clip_norm: float = 1.0, gnorm=None
                  ) -> Tuple[Tensors, Dict[str, object], Dict[str, torch.Tensor]]:
     """One AdamW step with the gradients clipped to ``clip_norm`` in
     global norm.  ``params`` and ``opt_state``'s moments are updated in
     place; returns (params, the new opt_state, ``{"grad_norm"}``).  The
     bias corrections ``1 - b**count`` are f32 tensors, as the reference's
-    (Python floats would be doubles)."""
-    gnorm = global_norm(grads)
+    (Python floats would be doubles).  ``gnorm``: the global norm where
+    ``grads`` are shards of the gradients (the mesh executor's), else
+    :func:`global_norm` of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     count = opt_state["count"] + 1
     cf = count.float()

@@ -1,0 +1,301 @@
+"""The mesh executor: a model whose state lives sharded on a mesh of
+several ranks, computing on plain tensors.
+
+The state (the parameters, AdamW's ``m`` and ``v``) is ``DTensor``s
+placed by :class:`~repro_torch.parallel.sharding.MeshRules`, so each
+rank holds the bytes the reference's specs give it (ZeRO-3 over the fsdp
+axes, and over ``model`` where a rule names it).  The compute is not
+split: each rank runs whole layers on its rows of the batch (rows split
+over the fsdp axes, as ``batch_specs`` splits them; a sequence split
+over ``model`` is gathered first).  The model asks this executor, through
+its hooks (:class:`~repro_torch.models.model.Model`), for:
+
+* **parameters**: each block, the embedding, the head and the norms
+  gather theirs right before use (an all-gather over their sharded mesh
+  dims) and drop them after; under remat the recompute gathers again.
+  In the backward pass each gathered tensor's gradient, a partial sum on
+  every rank, is reduced into its parameter's placements: a
+  reduce-scatter over each sharded mesh dim, then one all-reduce over
+  all the replicated dims together (one flattened group), so that every
+  replica of a shard receives the same bits.  That is the reference's
+  ``pin_grads``.
+* **MoE rows**: the reference routes all tokens of the batch at once
+  (expert capacity is ranked over all of them, and the load-balancing
+  loss takes its statistics over all of them).  So at each MoE layer the
+  rows of every rank are gathered, routed and computed alike on every
+  rank, and each rank keeps its own rows of the output; the gradient of
+  the gathered rows is summed over the ranks, each keeping its own.
+* **the loss**: ranks along a replicated mesh dim (``model``, unless the
+  batch cannot be split) hold the same rows, so each rank's share of the
+  loss is its rows' summed log-likelihood over the label count of the
+  whole batch, divided by the number of ranks that hold those rows; the
+  MoE terms, computed alike on every rank, by the number of ranks.  The
+  shares add up to the one-device loss, and so do their gradients.
+
+The kernels see plain local tensors, as on one device.  A mesh of one
+rank needs no executor: the model keeps plain tensors.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import math
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from .sharding import MeshRules, distribute, placements
+
+
+class _Gather(torch.autograd.Function):
+    """A parameter's local shard -> the whole tensor; backward: the whole
+    tensor's gradient (each rank's partial sum) reduced into the shard's
+    placements."""
+
+    @staticmethod
+    def forward(ctx, local, ex, pl):
+        ctx.ex, ctx.pl = ex, pl
+        full = DTensor.from_local(local, ex.mesh, pl,
+                                  run_check=False).full_tensor()
+        # a replicated shard comes back as itself: a new tensor for
+        # autograd
+        return full.clone() if full.data_ptr() == local.data_ptr() \
+            else full
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ex.reduce(g, ctx.pl), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Rows of every rank of ``group``, in rank order; backward: the sum
+    over the ranks of the gradient, this rank's rows of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, index):
+        ctx.group, ctx.n, ctx.index = group, n, index
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.chunk(ctx.n, dim=0)[ctx.index].contiguous(), None, None, \
+            None
+
+
+class MeshExecutor:
+    """Runs models on ``rules.mesh`` (a ``DeviceMesh`` of several ranks)."""
+
+    def __init__(self, rules: MeshRules):
+        if not rules.sharded:
+            raise ValueError("a mesh executor needs a mesh of several ranks")
+        self.rules = rules
+        self.mesh = mesh = rules.mesh
+        self.names = list(mesh.mesh_dim_names)
+        self.size = mesh.size()
+        self.coord = mesh.get_coordinate()
+        self.specs = rules.named_param_specs()
+        # one group for each set of two or more mesh dims: the ranks that
+        # differ only in those dims (every rank creates every group, in
+        # the same order)
+        nd = mesh.ndim
+        self._groups: Dict[Tuple[int, ...], object] = {}
+        for k in range(2, nd + 1):
+            for dims in itertools.combinations(range(nd), k):
+                rest = [d for d in range(nd) if d not in dims]
+                n = math.prod(mesh.size(d) for d in dims)
+                ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, n)
+                self._groups[dims], _ = dist.new_subgroups_by_enumeration(
+                    ranks.tolist())
+        self.set_rows(1)
+
+    # -- process groups --------------------------------------------------
+    def group(self, dims: Sequence[int]):
+        """The group of the ranks that differ from this one only in the
+        mesh dims ``dims`` (None: no dims)."""
+        dims = tuple(sorted(dims))
+        if not dims:
+            return None
+        if len(dims) == 1:
+            return self.mesh.get_group(dims[0])
+        return self._groups[dims]
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over every rank of the mesh, in one reduction
+        (the same bits on every rank)."""
+        t = t.clone()
+        dist.all_reduce(t, group=self.group(range(self.mesh.ndim)))
+        return t
+
+    # -- batch rows ------------------------------------------------------
+    def set_rows(self, batch: int) -> None:
+        """Split the rows of a batch of ``batch`` rows as ``batch_specs``
+        does: over the fsdp axes that divide it, in mesh order."""
+        entry = self.rules._fit(batch, self.rules.fsdp)
+        axes = () if entry is None else \
+            ((entry,) if isinstance(entry, str) else tuple(entry))
+        self.row_dims = tuple(self.names.index(a) for a in axes)
+        self.row_group = self.group(self.row_dims)
+        self.n_row_shards = math.prod(self.mesh.size(d)
+                                      for d in self.row_dims)
+        self.row_index = dist.get_rank(self.row_group) \
+            if self.row_group is not None else 0
+        #: ranks that hold each row
+        self.rep = self.size // self.n_row_shards
+
+    def row_placements(self):
+        return [Shard(0) if i in self.row_dims else Replicate()
+                for i in range(self.mesh.ndim)]
+
+    def local_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """This rank's rows of every leaf of ``batch`` (``DTensor``s, or
+        full tensors alike on every rank), whole along every other
+        dimension: a sequence split over ``model`` is gathered here,
+        before attention.  Sets the row split from the batch's rows."""
+        self.set_rows(next(iter(batch.values())).shape[0])
+        return {k: self.rows_of(v) if isinstance(v, DTensor) else
+                v.chunk(self.n_row_shards, dim=0)[self.row_index]
+                for k, v in batch.items()}
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of all ranks (the whole batch), with autograd."""
+        if self.row_group is None:
+            return x
+        return _GatherRows.apply(x, self.row_group, self.n_row_shards,
+                                 self.row_index)
+
+    def own_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole-batch tensor."""
+        return y.chunk(self.n_row_shards, dim=0)[self.row_index]
+
+    def place_rows(self, t: torch.Tensor, spec) -> DTensor:
+        """A ``DTensor`` placed by ``spec`` from this rank's rows ``t``
+        (whole along every other dimension): the block of each dimension
+        split over other mesh dims is cut locally."""
+        dt = DTensor.from_local(t.contiguous(), self.mesh,
+                                self.row_placements(), run_check=False)
+        return dt.redistribute(self.mesh, placements(self.mesh, spec))
+
+    def rows_of(self, dt: DTensor) -> torch.Tensor:
+        """This rank's rows of ``dt``, whole along every other dimension."""
+        return dt.redistribute(self.mesh, self.row_placements()).to_local()
+
+    # -- parameters ------------------------------------------------------
+    def shard(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, DTensor]:
+        """Whole tensors by parameter name (the same on every rank; the
+        parameters, or a moment) -> ``DTensor``s placed like the
+        parameters."""
+        return {n: distribute(t.detach(), self.mesh, self.specs[n])
+                for n, t in tensors.items()}
+
+    def adopt(self, model: nn.Module, params: Dict[str, DTensor]
+              ) -> nn.Module:
+        """Make ``params`` (``DTensor``s by name) the model's parameters
+        and bind the model to this executor."""
+        for name, dt in params.items():
+            owner, attr = _owner(model, name)
+            owner._parameters[attr] = nn.Parameter(dt)
+        return self.bind(model)
+
+    def shard_model(self, model: nn.Module) -> nn.Module:
+        """Replace every parameter of ``model`` (whole, the same on every
+        rank) by its ``DTensor`` placed by the rules, and bind the model
+        to this executor."""
+        return self.adopt(model, self.shard(dict(model.named_parameters())))
+
+    def bind(self, model: nn.Module) -> nn.Module:
+        """Point the model's hooks (the model, its blocks, its encoder) at
+        this executor."""
+        model.executor = self
+        for blk in model.blocks:
+            blk.executor = self
+        if model.enc is not None:
+            model.enc.executor = self
+        return model
+
+    def zeros_like(self, p: DTensor, dtype: torch.dtype) -> DTensor:
+        return DTensor.from_local(
+            torch.zeros(p.to_local().shape, dtype=dtype,
+                        device=p.to_local().device),
+            self.mesh, p.placements, run_check=False)
+
+    @contextlib.contextmanager
+    def gathered(self, module: nn.Module, names=None):
+        """Within the context, ``module``'s parameters (only its own ones
+        in ``names``, where given) are whole tensors, gathered from their
+        shards with the gradient's reduction attached."""
+        items = [(module, n) for n in names] if names is not None else \
+            [(m, n) for m in module.modules() for n in m._parameters]
+        saved = []
+        try:
+            for m, n in items:
+                p = m._parameters[n]
+                if isinstance(p, DTensor):
+                    saved.append((m, n, p))
+                    m._parameters[n] = _Gather.apply(
+                        p.to_local(), self, tuple(p.placements))
+            yield
+        finally:
+            for m, n, p in saved:
+                m._parameters[n] = p
+
+    def reduce(self, g: torch.Tensor, pl) -> torch.Tensor:
+        """Each rank's partial gradient of a whole tensor, summed over the
+        mesh into this rank's block under placements ``pl``: a
+        reduce-scatter over each sharded mesh dim, then one all-reduce
+        over the replicated ones together."""
+        nd = self.mesh.ndim
+        dt = DTensor.from_local(g.contiguous(), self.mesh,
+                                [Partial()] * nd, run_check=False)
+        local = dt.redistribute(self.mesh, [
+            p if isinstance(p, Shard) else Partial() for p in pl]).to_local()
+        rest = [i for i, p in enumerate(pl) if not isinstance(p, Shard)]
+        if rest:
+            if local.data_ptr() == g.data_ptr():
+                local = local.clone()
+            dist.all_reduce(local, group=self.group(rest))
+        return local
+
+    # -- the train step's pieces -----------------------------------------
+    def loss_share(self, model, batch, remat: bool) -> torch.Tensor:
+        """This rank's share of the loss on its rows ``batch`` (with its
+        graph); the shares of all ranks add up to the loss of the whole
+        batch."""
+        nll, count, per_group = model.train_terms(batch, remat=remat)
+        count = count.detach().clone()
+        if self.row_group is not None:
+            dist.all_reduce(count, group=self.row_group)
+        loss = nll / torch.clamp(count, min=1.0) / self.rep
+        if per_group:
+            loss = loss + 0.01 * sum(per_group) / len(per_group) / self.size
+        return loss
+
+    def global_norm(self, grads: Dict[str, DTensor]) -> torch.Tensor:
+        """The gradients' global L2 norm, in f32, the same bits on every
+        rank: each parameter's sum of squares counted once per shard (by
+        the replica at coordinate 0 of its replicated dims), all of them
+        summed over the mesh in one reduction."""
+        sq = []
+        for g in grads.values():
+            owner = all(self.coord[i] == 0
+                        for i, p in enumerate(g.placements)
+                        if not isinstance(p, Shard))
+            loc = g.to_local()
+            sq.append(torch.sum(torch.square(loc.float())) if owner
+                      else torch.zeros((), device=loc.device))
+        return torch.sqrt(sum(self.all_reduce(torch.stack(sq)).unbind()))
+
+
+def _owner(model: nn.Module, name: str):
+    """(the module holding parameter ``name``, its attribute name)."""
+    *path, attr = name.split(".")
+    mod = model
+    for part in path:
+        mod = getattr(mod, part)
+    return mod, attr

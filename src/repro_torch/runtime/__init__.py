@@ -1,5 +1,5 @@
-"""The fault-tolerant train loop on one device: the port of
-``src/repro/runtime``."""
+"""The fault-tolerant, elastic train loop, on one device or a mesh: the
+port of ``src/repro/runtime``."""
 from .train_loop import SimulatedFailure, Trainer, TrainReport
 
 __all__ = ["SimulatedFailure", "Trainer", "TrainReport"]

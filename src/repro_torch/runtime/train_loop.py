@@ -1,22 +1,27 @@
-"""Fault-tolerant training runtime on one device.
+"""Fault-tolerant, elastic training runtime, on one device or a mesh.
 
-Port of ``src/repro/runtime/train_loop.py``, where a device takes the
-place of the mesh:
+Port of ``src/repro/runtime/train_loop.py``.  A trainer runs on a mesh
+(a ``DeviceMesh`` of several ranks, its state ``DTensor`` shards placed
+by :class:`~repro_torch.parallel.MeshRules` and its steps run by a
+:class:`~repro_torch.parallel.MeshExecutor`) or on one device (the
+``(1, 1)`` mesh: plain tensors):
 
 * **cooperative checkpointing** — a ``preempt_flag`` callable is checked
   at every step boundary; when raised, the loop checkpoints and stops;
 * **checkpoint/restart** — topology-neutral checkpoints in the JAX
   package's format (:mod:`repro_torch.checkpoint`: the parameters and
-  AdamW's moments in the JAX tree's layout, ``opt/count`` and
-  ``extra.next_step``) and seekable data, so a restart resumes exactly,
-  and from a checkpoint of either package;
+  AdamW's moments in the JAX tree's layout with their specs,
+  ``opt/count`` and ``extra.next_step``) and seekable data, so a restart
+  resumes exactly, on this mesh or another, and from a checkpoint of
+  either package;
+* **elastic resize / live migration** — :meth:`Trainer.resize` moves the
+  live state through the host, whole, onto another mesh or device (a
+  ``(2, 2)`` mesh to ``(4, 1)``, the card to the host and back) without a
+  restart;
 * **failure injection** — ``failure_at`` raises :class:`SimulatedFailure`
   at that step, for the fault-tolerance tests;
 * **straggler monitoring** — per-step wall-time EMA; steps slower than
   ``STRAGGLER_FACTOR`` times the EMA are counted.
-
-The reference's ``Trainer.resize`` (live migration from one mesh to
-another) comes with the meshes, in the multi-device slice.
 """
 from __future__ import annotations
 
@@ -25,14 +30,18 @@ from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from ..checkpoint import AsyncCheckpointer, latest_step, restore
 from ..configs.base import ModelConfig, ParallelCfg, ShapeCfg
 from ..core.backends.base import resolve_device
 from ..data import SyntheticLMData
 from ..models import Model, params_from_jax, params_to_jax
+from ..models import registry as R
 from ..optim import adamw_init
-from ..parallel import make_train_step
+from ..parallel import MeshExecutor, MeshRules, make_train_step
 
 
 #: a step slower than this many times the wall-time EMA is a straggler
@@ -52,92 +61,180 @@ class TrainReport:
     preempted: bool = False
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A tensor whole: a ``DTensor`` gathered (every rank of its mesh
+    together), any other as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 class Trainer:
     """Trains ``cfg`` on ``shape``'s batches (``SyntheticLMData`` of
-    ``seed``) on ``device`` (``cuda:0`` unless the caller names another):
-    the weights are drawn from ``seed`` by a ``torch.Generator`` on the
-    device, AdamW's state is ``cfg.opt_state_dtype``, and the learning
-    rate warms up over the reference's default 100 steps to ``peak_lr``.
-    ``model`` and ``opt`` hold the state once :meth:`init_state` or
-    :meth:`maybe_restore` has made it; ``step`` is the next step."""
+    ``seed``) on ``mesh``: a ``DeviceMesh`` or a device (``cuda:0`` unless
+    the caller names another).  The weights are drawn from ``seed`` by a
+    ``torch.Generator`` on the compute device (whole on every rank of a
+    mesh, which keeps its shards), AdamW's state is
+    ``cfg.opt_state_dtype``, and the learning rate warms up over the
+    reference's default 100 steps to ``peak_lr``.  ``model`` and ``opt``
+    hold the state once :meth:`init_state` or :meth:`maybe_restore` has
+    made it; ``step`` is the next step.  On a mesh of several ranks every
+    rank makes the same calls."""
 
-    def __init__(self, cfg: ModelConfig, shape: ShapeCfg, device=None,
+    def __init__(self, cfg: ModelConfig, shape: ShapeCfg, mesh=None,
                  pcfg: Optional[ParallelCfg] = None, ckpt_dir=None,
                  seed: int = 0, peak_lr: float = 1e-3):
         self.cfg = cfg
         self.shape = shape
-        self.device = resolve_device(device)
         self.pcfg = pcfg or ParallelCfg(grad_accum=1, remat=True,
                                         seq_shard=False)
         self.seed = seed
         self.peak_lr = peak_lr
         self.ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
         self.ckpt_dir = ckpt_dir
-        self.data = SyntheticLMData(cfg, shape, seed, device=self.device)
-        self.step_fn = make_train_step(cfg, self.pcfg, peak_lr=peak_lr)
+        self._bind_mesh(mesh)
         self.step = 0
         self.model: Optional[Model] = None
         self.opt: Optional[dict] = None
 
+    # -- mesh binding (initial and elastic) ------------------------------
+    def _bind_mesh(self, mesh) -> None:
+        """The rules, specs, data placement, executor and step of
+        ``mesh``."""
+        if isinstance(mesh, DeviceMesh):
+            self.device = torch.device(mesh.device_type) \
+                if mesh.device_type == "cpu" else \
+                torch.device(mesh.device_type, torch.cuda.current_device())
+        else:
+            mesh = self.device = resolve_device(mesh)
+        self.mesh = mesh
+        self.rules = MeshRules(self.cfg, self.pcfg, mesh)
+        self.executor = MeshExecutor(self.rules) if self.rules.sharded \
+            else None
+        self.pspecs = self.rules.param_specs()
+        self.ospecs = self.rules.opt_specs(self.pspecs)
+        self.bspecs = self.rules.batch_specs(
+            R.train_input_specs(self.cfg, self.shape))
+        self.data = SyntheticLMData(self.cfg, self.shape, self.seed,
+                                    device=self.device, mesh=mesh,
+                                    specs=self.bspecs)
+        self.step_fn = make_train_step(self.cfg, self.pcfg, self.rules,
+                                       peak_lr=self.peak_lr)
+
     # -- state ------------------------------------------------------------
     def init_state(self) -> None:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        self.model = Model(self.cfg, generator=gen, device=self.device)
-        self.opt = adamw_init(dict(self.model.named_parameters()),
-                              self.cfg.opt_state_dtype)
+        model = Model(self.cfg, generator=gen, device=self.device)
+        if self.executor is None:
+            self.model = model
+            self.opt = adamw_init(dict(model.named_parameters()),
+                                  self.cfg.opt_state_dtype)
+        else:
+            self.model = self.executor.shard_model(model)
+            dt = getattr(torch, self.cfg.opt_state_dtype)
+            params = dict(self.model.named_parameters())
+            self.opt = {k: {n: self.executor.zeros_like(p, dt)
+                            for n, p in params.items()} for k in ("m", "v")}
+            self.opt["count"] = torch.zeros((), dtype=torch.int32,
+                                            device=self.device)
         self.step = 0
+
+    def _place(self, params, m, v, count) -> None:
+        """Make the state from whole tensors by parameter name, on the
+        bound device, or sharded on the bound mesh.  The dicts are emptied
+        as their tensors are placed, so each source can be freed at once."""
+        pdt = getattr(torch, self.cfg.param_dtype)
+        odt = getattr(torch, self.cfg.opt_state_dtype)
+
+        def on(tensors, dtype):
+            # a view (a layer of a stacked leaf) becomes a tensor of its
+            # own: CPU matmuls round by the operands' alignment
+            out = {}
+            for n in list(tensors):
+                t = tensors.pop(n)
+                out[n] = t.to(self.device, dtype, copy=t._base is not None)
+            return out
+        model = Model(self.cfg, device="meta")
+        if self.executor is None:
+            model.load_state_dict(on(params, pdt), assign=True)
+            self.opt = {"m": on(m, odt), "v": on(v, odt)}
+        else:
+            self.executor.adopt(model, self.executor.shard(on(params, pdt)))
+            self.opt = {"m": self.executor.shard(on(m, odt)),
+                        "v": self.executor.shard(on(v, odt))}
+        self.opt["count"] = count.to(self.device, torch.int32)
+        self.model = model
+
+    def host_state(self) -> dict:
+        """The state whole on the host, topology-neutral: ``params``,
+        ``m`` and ``v`` by parameter name and ``count`` (on a mesh every
+        rank gathers every tensor)."""
+        def host(tensors):
+            return {n: _whole(t).detach().to("cpu")
+                    for n, t in tensors.items()}
+        return {"params": host(dict(self.model.named_parameters())),
+                "m": host(self.opt["m"]), "v": host(self.opt["v"]),
+                "count": _whole(self.opt["count"]).to("cpu")}
 
     def state_tree(self, device=None) -> dict:
         """The state in the JAX package's tree: ``params``, ``opt`` with
         ``m``, ``v`` (each in the parameters' layout) and ``count``; new
         tensors on ``device`` (the state's own when None), one stacked
-        leaf at a time."""
-        return {"params": params_to_jax(self.model.state_dict(), self.cfg,
-                                        device),
-                "opt": {"m": params_to_jax(self.opt["m"], self.cfg, device),
-                        "v": params_to_jax(self.opt["v"], self.cfg, device),
-                        "count": self.opt["count"].clone()
-                        if device is None else
-                        self.opt["count"].to(device, copy=True)}}
+        leaf at a time (on a mesh every rank gathers every tensor)."""
+        def tree(tensors):
+            return params_to_jax({n: _whole(t) for n, t in tensors.items()},
+                                 self.cfg, device)
+        count = _whole(self.opt["count"])
+        return {"params": tree(dict(self.model.named_parameters())),
+                "opt": {"m": tree(self.opt["m"]), "v": tree(self.opt["v"]),
+                        "count": count.clone() if device is None else
+                        count.to(device, copy=True)}}
 
     def maybe_restore(self) -> bool:
         """Load the latest checkpoint of ``ckpt_dir`` (the port's or the
-        JAX package's) onto the device; False when there is none."""
+        JAX package's) whole on the host, then place it on the device or
+        by this mesh's rules; False when there is none."""
         if self.ckpt_dir is None:
             return False
         last = latest_step(self.ckpt_dir)
         if last is None:
             return False
         state, extra = restore(self.ckpt_dir, last)
-
-        def own(tree, dtype):
-            # a tensor of its own per parameter, not a view of the stacked
-            # leaf: CPU matmuls round by the operands' alignment
-            return {n: t.to(self.device, dtype, copy=True)
-                    for n, t in params_from_jax(tree, self.cfg).items()}
-
-        model = Model(self.cfg, device="meta")
-        model.load_state_dict(own(state["params"],
-                                  getattr(torch, self.cfg.param_dtype)),
-                              assign=True)
-        dt = getattr(torch, self.cfg.opt_state_dtype)
-        self.model = model
-        self.opt = {k: own(state["opt"][k], dt) for k in ("m", "v")}
-        self.opt["count"] = state["opt"]["count"].to(self.device,
-                                                     torch.int32)
+        opt = state["opt"]
+        self._place(*(params_from_jax(t, self.cfg)
+                      for t in (state["params"], opt["m"], opt["v"])),
+                    opt["count"])
         self.step = int(extra["next_step"])
         return True
 
     def save_checkpoint(self) -> None:
+        """Checkpoint the state with its specs; on a mesh every rank
+        gathers and the first rank of the mesh writes, then all wait."""
         if self.ckpt is None:
             return
-        self.ckpt.save(self.step, self.state_tree(torch.device("cpu")),
-                       extra={"next_step": self.step})
-        self.ckpt.wait()
+        tree = self.state_tree(torch.device("cpu"))
+        ex = self.executor
+        if ex is None or dist.get_rank() == int(self.mesh.mesh.min()):
+            self.ckpt.save(self.step, tree,
+                           specs={"params": self.pspecs,
+                                  "opt": self.ospecs},
+                           extra={"next_step": self.step})
+            self.ckpt.wait()
+        if ex is not None:
+            dist.barrier(group=ex.group(range(self.mesh.ndim)))
 
-    # -- elastic resize / live migration: the reference's ``resize(mesh)``
-    # reshards the state onto another mesh; it comes with the meshes, in
-    # the multi-device slice (one device has nothing to reshard)
+    # -- elastic resize / live migration ----------------------------------
+    def resize(self, new_mesh) -> None:
+        """Live-migrate the job onto another mesh or device (the cluster-
+        scale analogue of the paper's cross-GPU kernel migration): the
+        state goes whole through the host (:meth:`host_state`), the old
+        one is dropped, and the rules, data and step are bound to
+        ``new_mesh`` before the state is placed there.  The step counter,
+        and with it the data's position, carries over."""
+        host = self.host_state()
+        step = self.step
+        self.model = self.opt = None
+        self._bind_mesh(new_mesh)
+        self._place(host["params"], host["m"], host["v"], host["count"])
+        self.step = step
 
     # -- the loop -----------------------------------------------------------
     def run(self, num_steps: int, *, checkpoint_every: int = 0,

@@ -19,6 +19,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -33,6 +34,8 @@ from repro.checkpoint import save as jax_save
 from repro.models import init_params as jax_init_params
 from repro.optim import adamw_init as jax_adamw_init
 from repro.optim import adamw_update as jax_adamw_update
+from repro.parallel.sharding import MeshRules as RefMeshRules
+from jax.sharding import PartitionSpec
 
 from repro_torch import configs
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step, restore,
@@ -114,7 +117,9 @@ def test_jax_checkpoint_restores_in_the_port(tmp_path, jax_state):
 
 def test_port_checkpoint_restores_in_jax(tmp_path):
     """The port's trainer checkpoints after a step; the JAX package's
-    ``restore(..., mesh=None)`` reads the same bits into the JAX tree."""
+    ``restore(..., mesh=None)`` reads the same bits into the JAX tree, and
+    the manifest records each leaf's spec on the trainer's ``(1, 1)``
+    mesh as the reference's rules give it."""
     arch = "granite-moe-3b-a800m"
     cfg = configs.get_smoke_config(arch)
     t = Trainer(cfg, SMOKE_SHAPE, "cpu", ckpt_dir=tmp_path, seed=2)
@@ -132,7 +137,19 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
     _assert_same_tree(jax.tree.map(np.asarray, state), t.state_tree())
     manifest = json.loads((tmp_path / "step_1" / "manifest.json")
                           .read_text())
-    assert all(leaf["spec"] is None for leaf in manifest["leaves"].values())
+    stub = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.empty((1, 1)))
+    rules = RefMeshRules(ref_cfg, t.pcfg, stub)
+    pspecs = rules.param_specs()
+    want = {"params": pspecs, "opt": rules.opt_specs(pspecs)}
+    specs = jax.tree.leaves_with_path(
+        want, is_leaf=lambda x: isinstance(x, PartitionSpec))
+    assert len(specs) == len(manifest["leaves"])
+    for path, spec in specs:
+        key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+        assert manifest["leaves"][key]["spec"] == \
+            [list(e) if isinstance(e, tuple) else e for e in spec], key
 
 
 def test_bf16_leaves_are_the_reference_npy(tmp_path):
