@@ -224,9 +224,24 @@ card) and against the NumPy oracles:
    ``F32_TRAIN_TOL`` of 3 steps on the card, while a resize that
    re-initializes AdamW's moments falls outside it.
 
+12. the production dry run's one-card cell (``repro_torch.launch.
+   dryrun.lower_cell`` on the ``(1, 1)`` mesh): phase 10's train step
+   (granite-moe-3b-a800m, bf16, 4 x 1024, remat, AdamW) traced on
+   ``meta`` under the op counter, which launches nothing; it prints the
+   counted FLOPs, bytes, ``state_bytes_per_device``, the predicted peak of
+   live bytes and the roofline terms (H100 datasheet rates).  Then phase
+   10's job takes two steps on the card: its state's bytes (parameters,
+   ``m``, ``v``) must equal the predicted ``state_bytes_per_device``, and
+   the second step's time and ``torch.cuda.max_memory_allocated`` (above
+   what the process held before the phase) are printed beside the
+   roofline and the predicted peak, with the step's launches
+   (``dryrun_path``).  On ``meta`` flash attention and the
+   grouped matmul run their plain math (the JAX model's, which the
+   reference's dry run counts); on the card, their kernels.
+
 Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6,
 phase 8 after phase 7, phase 9 after phase 8, phase 10 after phase 9,
-phase 11 after phase 10.
+phase 11 after phase 10, phase 12 after phase 11.
 Phase 4 also times
 the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
@@ -252,7 +267,8 @@ and after it (``model_path`` in the kernels line, by model), and reset
 before each train step of phase 10 and read after it, and for one step
 also at the end of its forward (``train_path``: the launches of one
 step), and reset before each of phase 11's prefill, decode and train
-steps and read after it (``mesh_path``).  Any
+steps and read after it (``mesh_path``), and reset before phase 12's
+trace and its measured step and read after each (``dryrun_path``).  Any
 mismatch or launch error ends the run with a non-zero code.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -463,6 +479,10 @@ F32_TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad": 1e-3,
 MESH_STEPS = 4
 MIGRATE_STEPS, MIGRATE_AT = 4, 2
 MIGRATE_F32_LAYERS, MIGRATE_F32_B, MIGRATE_F32_S = 2, 1, 128
+#: phase 12: the dry run's one-card cell is phase 10's train step (its
+#: batch, remat, one microbatch); the card takes DRYRUN_STEPS steps of it
+#: and the last is measured
+DRYRUN_STEPS = 2
 
 
 class SmokeFailure(Exception):
@@ -3474,6 +3494,85 @@ def phase11(dev, smi: str, serve_tokens, first_step: dict) -> dict:
     }
 
 
+def phase12(dev, smi: str) -> dict:
+    """Phase 12: the production dry run's one-card cell against the card.
+    Returns the kernels line's ``dryrun_path`` entries, by kernel name."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import ParallelCfg, ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime import Trainer
+
+    counters = launch_counters()
+    cfg = configs.get_config(SERVE_ARCH)
+    L = cfg.n_layers
+    shape = ShapeCfg("phase10", TRAIN_S, TRAIN_B, "train")
+    pcfg = ParallelCfg(grad_accum=1, remat=True, seq_shard=False)
+    torch.cuda.empty_cache()
+
+    # -- the cell traced on meta: counted, nothing launched -----------------
+    reset_launches(counters)
+    cell = dryrun.lower_cell(SERVE_ARCH, shape, False, pcfg_override=pcfg,
+                             mesh=torch.device("meta"))
+    traced = read_launches(counters)
+    check(cell["status"] == "ok" and not any(traced.values()),
+          f"phase 12: the dry run's trace: {cell.get('status')}, launches "
+          f"{traced}")
+    check(cell["state_bytes_per_device"] == cell["state_bytes_local"],
+          f"phase 12: state bytes {cell['state_bytes_per_device']} by the "
+          f"formula, {cell['state_bytes_local']} in the traced state")
+    roof = cell["roofline"]
+    print(f"phase 12: the dry run's one-card cell, {cfg.name} train step "
+          f"{TRAIN_B} x {TRAIN_S} on the (1, 1) mesh, traced on meta in "
+          f"{cell['t_trace_s']} s ({cell['n_ops']} ops; flash attention and "
+          f"the grouped matmul counted as their plain math, which the "
+          f"reference's dry run counts, where the card runs their kernels): "
+          f"{cell['hlo_flops']:.6g} FLOPs, {cell['hlo_bytes']:.6g} B (eager, "
+          f"unfused), state {cell['state_bytes_per_device']:.6g} B, "
+          f"predicted peak {cell['peak_bytes_per_device'] / 1e9:.3f} GB; "
+          f"roofline compute {roof['compute_s'] * 1e3:.3f} ms, memory "
+          f"{roof['memory_s'] * 1e3:.3f} ms ({roof['constants']})")
+
+    # -- phase 10's job on the card ------------------------------------------
+    # what the process holds before (earlier phases' allocations) is not
+    # the step's: the prediction is held against the rest
+    held = torch.cuda.memory_allocated()
+    tr = Trainer(cfg, shape, dev, pcfg=pcfg, seed=0)
+    tr.init_state()
+    card_state = sum(t.numel() * t.element_size() for t in (
+        *tr.model.parameters(), *tr.opt["m"].values(),
+        *tr.opt["v"].values()))
+    check(card_state == cell["state_bytes_per_device"],
+          f"phase 12: the card holds {card_state} B of state, the dry run "
+          f"predicted {cell['state_bytes_per_device']}")
+    for i in range(DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        loss = tr.run(1).losses[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated() - held
+    check(math.isfinite(loss), f"phase 12: loss {loss}")
+    want = {"flash_attention_sm90": 2 * L, "moe_gmm_sm90": 6 * L}
+    check(all(launches[n] == want.get(n, 0) for n in launches),
+          f"phase 12: expected {want} launches in the step, got {launches}")
+    bound_ms = max(roof["compute_s"], roof["memory_s"]) * 1e3
+    print(f"phase 12: the card's state {card_state} B equals the predicted "
+          f"state_bytes_per_device; step {DRYRUN_STEPS}: {ms:.3f} ms against "
+          f"the counted roofline's {bound_ms:.3f} ms ({ms / bound_ms:.2f}x), "
+          f"max_memory_allocated {peak / 1e9:.3f} GB above the "
+          f"{held / 1e9:.3f} GB the process held before, against the "
+          f"predicted peak {cell['peak_bytes_per_device'] / 1e9:.3f} GB "
+          f"({peak / cell['peak_bytes_per_device']:.3f}x); loss {loss:.6f}; "
+          f"launches {launches}; on {smi}")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "core").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -3882,6 +3981,11 @@ def main() -> int:
     for k in kernels:
         if k["name"] in p11:
             k["mesh_path"] = {SERVE_ARCH: p11[k["name"]]}
+    # -- phase 12: the production dry run's one-card cell ---------------------
+    p12 = phase12(dev, smi)
+    for k in kernels:
+        if p12.get(k["name"]):
+            k["dryrun_path"] = {SERVE_ARCH: p12[k["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..parallel.sharding import distribute, is_sharded, mesh_axes
+from ..parallel.sharding import distribute, gather_to, is_sharded, mesh_axes
 
 MANIFEST = "manifest.json"
 #: numpy's type string of a bf16 leaf (what the reference's np.save writes)
@@ -102,10 +102,13 @@ def _spec_from_json(obj) -> tuple:
 
 def _host(leaf) -> Any:
     """A leaf on the host: a torch tensor on the CPU (copied off a device;
-    a ``DTensor`` gathered first, which every rank of its mesh must do
-    together) or a numpy array."""
+    a ``DTensor`` gathered to the first rank of its mesh, which every rank
+    of the mesh must do together: None on the other ranks, which hold
+    only their blocks) or a numpy array."""
     if isinstance(leaf, DTensor):
-        leaf = leaf.full_tensor()
+        leaf = gather_to(leaf, int(leaf.device_mesh.mesh.min()))
+        if leaf is None:
+            return None
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu()
     return np.asarray(leaf)
@@ -155,20 +158,25 @@ def _read_leaf(fname: Path) -> torch.Tensor:
 def save(path, step: int, state, specs=None, extra: Optional[dict] = None
          ) -> None:
     """Write a checkpoint of ``state`` (a tree of dicts and lists whose
-    leaves are torch tensors or numpy arrays).  ``specs``: the matching
-    tree of partition specs (tuples), recorded for the restore to fit."""
+    leaves are torch tensors, ``DTensor``s or numpy arrays).  ``specs``:
+    the matching tree of partition specs (tuples), recorded for the
+    restore to fit.  With ``DTensor`` leaves every rank of their mesh
+    calls this together: each leaf is gathered to the mesh's first rank,
+    which alone writes."""
     path = Path(path)
+    flat = {k: _host(v) for k, v in _flatten_with_paths(state).items()}
+    if any(v is None for v in flat.values()):
+        return
     tmp = path / f".tmp_step_{step}"
     final = path / f"step_{step}"
     tmp.mkdir(parents=True, exist_ok=True)
 
-    flat = _flatten_with_paths(state)
     flat_specs = _flatten_with_paths(specs, spec_leaves=True) \
         if specs is not None else {}
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
     for key, leaf in flat.items():
         fname = key.replace("/", "__") + ".npy"
-        shape, dtype = _write_leaf(tmp / fname, _host(leaf))
+        shape, dtype = _write_leaf(tmp / fname, leaf)
         manifest["leaves"][key] = {
             "file": fname, "shape": shape, "dtype": dtype,
             "spec": _spec_to_json(flat_specs[key])
@@ -246,6 +254,8 @@ class AsyncCheckpointer:
         self.wait()
         # the flat dicts of paths are themselves trees with the same paths
         host = {k: _host(v) for k, v in _flatten_with_paths(state).items()}
+        if any(v is None for v in host.values()):
+            return          # another rank of the leaves' mesh writes
         flat_specs = _flatten_with_paths(specs, spec_leaves=True) \
             if specs is not None else None
 

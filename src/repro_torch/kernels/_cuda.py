@@ -60,16 +60,31 @@ def launch(name: str, argtypes: Sequence, device: torch.device,
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie
-    on the CPU (the plain version's route); raises for anything else."""
+    on the CPU (the plain version's route) or all on ``meta`` (a dry
+    run's trace: the oracle's route, :func:`on_meta`); raises for
+    anything else."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError("tensors on several devices: "
                          f"{sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"tensors on {dev}: the kernels take CUDA tensors "
-                         "and the plain versions CPU tensors")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"tensors on {dev}: the kernels take CUDA tensors, "
+                         "the plain versions CPU tensors and the oracles "
+                         "meta tensors")
     return dev.type == "cuda"
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True when the tensors lie on ``meta`` (after :func:`on_cuda` said
+    False): a dry run's trace, where nothing computes and each op
+    dispatched costs time.  A wrapper whose plain version steps through
+    small tiles or single steps (flash attention's 128-row tiles, the
+    grouped matmul's tiles, the RG-LRU's steps) then takes the same
+    function in few ops: the JAX model's plain math (q chunks of 512, one
+    einsum, a log-depth scan), whose FLOPs are those the reference's dry
+    run counts; the mLSTM's plain version is chunked already."""
+    return tensors[0].device.type == "meta"
 
 
 def prepare(operands: Sequence[torch.Tensor],

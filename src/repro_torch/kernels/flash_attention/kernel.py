@@ -48,6 +48,7 @@ import math
 import torch
 
 from .. import _cuda
+from .ref import attention_chunked
 
 NEG_INF = -1e30
 #: the widest head of the kernels' one-chunk builds; wider heads run the
@@ -104,6 +105,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window=None,
     """q,k,v: [B, H, S, d] (kv pre-repeated for GQA), floating point.
     Returns [B,H,S,d] in the type of ``q``."""
     if not _cuda.on_cuda(q, k, v):
+        if _cuda.on_meta(q):
+            return attention_chunked(q, k, v, causal=causal,
+                                     window=window)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      bq=bq, bk=bk)
     out_dtype = q.dtype

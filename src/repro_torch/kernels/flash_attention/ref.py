@@ -8,10 +8,27 @@ import torch
 
 def attention_ref(q, k, v, *, causal: bool = True, window=None):
     """q,k,v: [B,H,S,d]; full-matrix softmax attention."""
+    return _attend(q, k, v, causal, window, 0)
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, window=None,
+                      q_chunk: int = 512):
+    """:func:`attention_ref` over chunks of ``q_chunk`` query rows, each
+    against every key: the JAX model's plain attention
+    (``_mha_chunked_fwd``'s chunks of 512), whose scores never exceed
+    ``[B, H, q_chunk, Sk]`` at a time."""
+    Sq = q.shape[2]
+    return torch.cat([_attend(q[:, :, q0:q0 + q_chunk], k, v, causal,
+                              window, q0)
+                      for q0 in range(0, Sq, q_chunk)], dim=2)
+
+
+def _attend(q, k, v, causal, window, q0: int):
+    """Attention of the queries at positions ``q0 ..`` on every key."""
     B, H, Sq, d = q.shape
     Sk = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = q0 + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:

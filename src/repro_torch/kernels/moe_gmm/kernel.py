@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
+from .ref import moe_gmm_ref
 
 
 def moe_gmm_plain(x, w, counts, *, bc: int = 128, bf: int = 128,
@@ -67,6 +68,8 @@ def moe_gmm_fwd(x, w, counts, *, bc: int = 128, bf: int = 128,
     Pallas output and contraction tiles) do not change the result and are
     not used; ``bc`` decides which rows are live."""
     if not _cuda.on_cuda(x, w, counts):
+        if _cuda.on_meta(x):
+            return moe_gmm_ref(x, w, counts)
         return moe_gmm_plain(x, w, counts, bc=bc, bf=bf, bd=bd)
     out_dtype = x.dtype
     (x, w), _, (counts,) = _cuda.prepare((x, w), i32=(counts,))

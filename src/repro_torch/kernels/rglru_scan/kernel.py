@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
+from .ref import rglru_scan_assoc
 
 
 def rglru_scan_plain(a, x, h0, *, bs: int = 256, bd: int = 128):
@@ -43,6 +44,8 @@ def rglru_scan_fwd(a, x, h0, *, bs: int = 256, bd: int = 128):
     """a, x: [B, S, D] (decay, gated input), floating point; h0: [B, D].
     Returns (h [B,S,D] in the type of ``a``, h_final [B,D] f32)."""
     if not _cuda.on_cuda(a, x, h0):
+        if _cuda.on_meta(a):
+            return rglru_scan_assoc(a, x, h0)
         return rglru_scan_plain(a, x, h0, bs=bs, bd=bd)
     out_dtype = a.dtype
     (a, x), (h0,), _ = _cuda.prepare((a, x), f32=(h0,))

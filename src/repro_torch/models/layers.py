@@ -30,6 +30,22 @@ The decode's self-attention against the cache, the per-step mLSTM and
 the sLSTM stay plain torch ops: the JAX package computes them outside any
 Pallas kernel (the attention kernel assumes aligned q and k positions;
 cross-attention has no positions to align, so its decode runs the kernel).
+
+The split over a mesh's ``model`` dim.  The attention, FFN, MoE and
+RG-LRU functions take the reference's ``ac`` hook: None on one device
+(the one-device path, op for op), or a
+:class:`~repro_torch.parallel.split.ModelSplit`, and then ``p`` holds
+this rank's blocks of the ``model``-split parameters.  At the reference's
+points: ``ac(x, "mm_input")`` gathers a sequence-split residual;
+``heads4`` takes this rank's heads (:func:`_heads`, :func:`_local_heads`:
+a projection whose columns do not line up with heads is gathered first,
+as GSPMD reshards it, and a head count that the split does not divide
+keeps every head on every rank); ``attn_mix`` / ``ffn_hidden`` end in a
+row-parallel product whose partial sums are added over ``model``
+(:func:`_row_parallel`); ``moe_buf`` runs this rank's experts, or its
+slice of ``d_ff`` (:func:`_experts_of`).  The decode reads a cache split
+by heads, by slots (a log-sum-exp over ``model``) or whole.  The mLSTM
+and the sLSTM take no hook: their blocks compute whole.
 """
 from __future__ import annotations
 
@@ -161,83 +177,188 @@ def repeat_kv(k, n_heads: int):
     return k.repeat_interleave(G, dim=2) if G > 1 else k
 
 
+def _mm_input(ac, x):
+    return x if ac is None else ac(x, "mm_input")
+
+
+def _heads(ac, t, n: int, hd: int):
+    """A projection's output ``[B, S, c]`` as heads ``[B, S, h, hd]``: all
+    ``n`` of them, or this rank's ``n / ac.n`` where its columns are
+    split and line up with heads; split columns that do not line up (a
+    fraction of a head per rank) are gathered whole first."""
+    B, S, c = t.shape
+    if ac is not None and c < n * hd and n % ac.n:
+        t = ac.gather(t, 2)
+    return t.reshape(B, S, -1, hd)
+
+
+def _kv_for(ac, k, q_heads: int, n_heads: int, n_kv: int, dim: int = 2):
+    """Keys or values ``k`` (all ``n_kv`` heads, or this rank's block of
+    them, along ``dim``) for this rank's ``q_heads`` query heads (all
+    ``n_heads``, or its block): repeated GQA-wise, or, from every kv head,
+    the ones those queries read."""
+    if ac is not None and q_heads < n_heads and k.shape[dim] == n_kv:
+        G = n_heads // n_kv
+        idx = (ac.index * q_heads
+               + torch.arange(q_heads, device=k.device)) // G
+        return k.index_select(dim, idx)
+    G = q_heads // k.shape[dim]
+    return k.repeat_interleave(G, dim=dim) if G > 1 else k
+
+
+def _row_parallel(ac, o, w, rows: int):
+    """``o @ w`` for ``w`` of ``rows`` rows (the reference's ``attn_mix``
+    / ``ffn_hidden`` point): where ``w``'s rows are split, this rank's
+    columns of ``o`` times its rows, the partial sums added over ``model``
+    (:meth:`~repro_torch.parallel.split.ModelSplit.sum_seq`); else the
+    whole product (under SP, this rank's slice of the sequence)."""
+    if ac is None:
+        return o @ w
+    if w.shape[0] < rows:
+        if o.shape[-1] == rows:
+            o = ac.own(o, -1)
+        return ac.sum_seq(o @ w)
+    if o.shape[-1] < rows:
+        o = ac.gather(o, -1)
+    y = o @ w
+    return ac.own(y, 1) if ac.seq else y
+
+
 def attention(x, p: Params, cfg: ModelConfig, *, causal: bool = True,
-              window: Optional[int] = None, positions=None):
+              window: Optional[int] = None, positions=None, ac=None):
     """Self-attention over x [B,S,D]: causal (windowed when ``window``),
     or bidirectional with ``causal=False`` (an encoder; RoPE on q and k
-    all the same); the core runs on the flash attention kernel.  Returns
-    ``(y, k, v)`` with the rotated keys and the values ``[B,S,Hkv,hd]``
-    that the cache keeps (the JAX prefill projects them a second time)."""
+    all the same); the core runs on the flash attention kernel (on a split
+    mesh, on this rank's heads).  Returns ``(y, k, v)`` with the rotated
+    keys and the values ``[B,S,Hkv,hd]`` that the cache keeps (this rank's
+    kv heads where they are split; the JAX prefill projects them a second
+    time)."""
+    x = _mm_input(ac, x)
     B, S, D = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, h, hd)
-    k = (x @ p["wk"]).reshape(B, S, hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, hkv, hd)
+    q = _heads(ac, x @ p["wq"], h, hd)
+    k = _heads(ac, x @ p["wk"], hkv, hd)
+    v = _heads(ac, x @ p["wv"], hkv, hd)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q.transpose(1, 2), repeat_kv(k, h).transpose(1, 2),
-                        repeat_kv(v, h).transpose(1, 2), causal,
+    hq = q.shape[2]
+    o = flash_attention(q.transpose(1, 2),
+                        _kv_for(ac, k, hq, h, hkv).transpose(1, 2),
+                        _kv_for(ac, v, hq, h, hkv).transpose(1, 2), causal,
                         window)                             # [B,H,S,hd]
-    return o.transpose(1, 2).reshape(B, S, h * hd) @ p["wo"], k, v
+    y = _row_parallel(ac, o.transpose(1, 2).reshape(B, S, hq * hd),
+                      p["wo"], h * hd)
+    return y, k, v
 
 
-def cross_kv(enc_out, p: Params, cfg: ModelConfig):
+def cross_kv(enc_out, p: Params, cfg: ModelConfig, ac=None):
     """The cross-attention keys and values of an encoder's output
-    ``[B, S_enc, D]``: head-major ``[B, Hkv, S_enc, hd]`` and contiguous,
-    as the cross cache keeps them (the JAX package keeps
-    ``[B, S_enc, Hkv, hd]``), so that every decode step's kernel call
-    reads them with no copy."""
+    ``[B, S_enc, D]`` (whole): head-major ``[B, Hkv, S_enc, hd]`` (this
+    rank's kv heads where they are split) and contiguous, as the cross
+    cache keeps them (the JAX package keeps ``[B, S_enc, Hkv, hd]``), so
+    that every decode step's kernel call reads them with no copy."""
     B, S, _ = enc_out.shape
     hkv, hd = cfg.n_kv_heads, cfg.hd
-    k = (enc_out @ p["wk"]).reshape(B, S, hkv, hd)
-    v = (enc_out @ p["wv"]).reshape(B, S, hkv, hd)
+    k = _heads(ac, enc_out @ p["wk"], hkv, hd)
+    v = _heads(ac, enc_out @ p["wv"], hkv, hd)
     return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
 
-def cross_attention(x, p: Params, cfg: ModelConfig, k, v):
+def cross_attention(x, p: Params, cfg: ModelConfig, k, v, ac=None,
+                    kv_split: Optional[int] = None):
     """Cross-attention of x [B,S,D] on an encoder's ``k, v [B, Hkv, S_enc,
     hd]`` (:func:`cross_kv`): no RoPE and no mask, as the JAX package's
     ``attention(kv_override=...)``; the core runs on the flash attention
     kernel with ``Sq = S`` (the prompt in the prefill, 1 in a decode
-    step) against ``Sk = S_enc``."""
+    step) against ``Sk = S_enc``.  ``kv_split``: the dim of ``k``/``v``
+    split over ``model`` (1: heads, 2: encoder positions, whose partial
+    attentions are combined by a log-sum-exp; None: whole)."""
+    x = _mm_input(ac, x)
     B, S, D = x.shape
-    h, hd = cfg.n_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, h, hd).transpose(1, 2)
-    G = h // k.shape[1]
-    if G > 1:
-        k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _heads(ac, x @ p["wq"], h, hd)
+    if kv_split == 2:  # every head against this rank's encoder positions
+        if q.shape[2] < h:
+            q = ac.gather(q, 2)
+        o = _attend_slots(ac, q, k.transpose(1, 2), v.transpose(1, 2), h,
+                          None)
+        return _row_parallel(ac, o, p["wo"], h * hd)
+    q = q.transpose(1, 2)
+    hq = q.shape[1]
+    if ac is None:
+        G = h // k.shape[1]
+        if G > 1:
+            k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    else:
+        k, v = (_kv_for(ac, t, hq, h, hkv, dim=1) for t in (k, v))
     o = flash_attention(q, k, v, False, None)                # [B,H,S,hd]
-    return o.transpose(1, 2).reshape(B, S, h * hd) @ p["wo"]
+    return _row_parallel(ac, o.transpose(1, 2).reshape(B, S, hq * hd),
+                         p["wo"], h * hd)
+
+
+def _attend_slots(ac, q, k, v, h: int, valid):
+    """One query position of every head ``q [B, 1, H, hd]`` against this
+    rank's slice of the keys and values ``[B, Sl, Hkv, hd]`` (``valid``:
+    their mask ``[Sl]``, or None), each rank's partial softmax combined
+    over ``model`` by a log-sum-exp; returns ``[B, 1, H * hd]`` in ``q``'s
+    type."""
+    B, _, _, hd = q.shape
+    hkv = k.shape[2]
+    G = h // hkv
+    qh = q.reshape(B, 1, hkv, G, hd)
+    s = torch.einsum("bckgh,bskh->bkgcs", qh.float(), k.float()) \
+        / math.sqrt(hd)
+    if valid is not None:
+        s = torch.where(valid, s, -torch.inf)
+    m = ac.max(torch.clamp(s.amax(-1, keepdim=True), min=-1e30))
+    pbar = torch.exp(s - m)
+    l = ac.sum(pbar.sum(-1, keepdim=True))
+    o = ac.sum(torch.einsum("bkgcs,bskh->bckgh", pbar, v.float()))
+    o = o / torch.clamp(l.permute(0, 3, 1, 2, 4), min=1e-30)
+    return o.reshape(B, 1, h * hd).to(q.dtype)
 
 
 def attention_decode(x, p: Params, cfg: ModelConfig, cache, pos: int, *,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, ac=None,
+                     kv_split: Optional[int] = None):
     """One-token decode against a cache.
 
     cache: {"k","v": [B, S_cache, Hkv, hd]} — a ring buffer when windowed
     (slot ``pos % S_cache``).  pos: absolute position of the new token.
     The new k/v are written into ``cache`` in place (the JAX package
-    returns an updated copy); returns (y [B,1,D], cache)."""
+    returns an updated copy); returns (y [B,1,D], cache).  On a split
+    mesh ``kv_split`` says how this rank's cache is cut: 2, its kv heads
+    (this rank's query heads read them); 1, its slice of the slots (every
+    head, a log-sum-exp over ``model``; the slot's owner writes the new
+    k/v); None, whole (this rank's query heads read the kv heads they
+    need)."""
     B, S, D = x.shape  # S == 1
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, 1, h, hd)
-    k_new = (x @ p["wk"]).reshape(B, 1, hkv, hd)
-    v_new = (x @ p["wv"]).reshape(B, 1, hkv, hd)
+    q = _heads(ac, x @ p["wq"], h, hd)
+    k_new = _heads(ac, x @ p["wk"], hkv, hd)
+    v_new = _heads(ac, x @ p["wv"], hkv, hd)
     posv = torch.full((B, 1), pos, device=x.device)
     q = rope(q, posv, cfg.rope_theta)
     k_new = rope(k_new, posv, cfg.rope_theta)
 
     k, v = cache["k"], cache["v"]
-    S_cache = k.shape[1]
+    if ac is not None and kv_split != 2 and k_new.shape[2] < hkv:
+        k_new, v_new = ac.gather(k_new, 2), ac.gather(v_new, 2)
+    S_cache = k.shape[1] * (ac.n if kv_split == 1 else 1)
     if window is None and pos >= S_cache:
         raise ValueError(f"position {pos} is past the cache of {S_cache}")
     slot = pos % S_cache if window is not None else pos
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
-
     idx = torch.arange(S_cache, device=x.device)
+    if kv_split == 1:  # this rank's slots
+        first = ac.index * k.shape[1]
+        idx = idx[first:first + k.shape[1]]
+        slot -= first
+    if 0 <= slot < k.shape[1]:
+        k[:, slot] = k_new[:, 0].to(k.dtype)
+        v[:, slot] = v_new[:, 0].to(v.dtype)
+
     if window is not None:
         # ring buffer: slot i holds position pos - ((pos - i) mod S_cache)
         kpos = pos - ((pos - idx) % S_cache)
@@ -245,9 +366,18 @@ def attention_decode(x, p: Params, cfg: ModelConfig, cache, pos: int, *,
     else:
         valid = idx <= pos
 
+    if kv_split == 1:
+        if q.shape[2] < h:
+            q = ac.gather(q, 2)
+        return _row_parallel(ac, _attend_slots(ac, q, k, v, h, valid),
+                             p["wo"], h * hd), cache
+    hq = q.shape[2]
+    if hq < h and k.shape[2] == hkv:  # this rank's heads, every kv head
+        k, v = (_kv_for(ac, t, hq, h, hkv) for t in (k, v))
     scale = 1.0 / math.sqrt(hd)
-    G = h // hkv
-    qh = q.reshape(B, 1, hkv, G, hd)
+    hk = k.shape[2]
+    G = hq // hk
+    qh = q.reshape(B, 1, hk, G, hd)
     s = torch.einsum("bckgh,bskh->bkgcs", qh.float(), k.float()) * scale
     s = torch.where(valid, s, -torch.inf)
     m = torch.clamp(s.amax(-1, keepdim=True), min=-1e30)
@@ -255,8 +385,8 @@ def attention_decode(x, p: Params, cfg: ModelConfig, cache, pos: int, *,
     l = pbar.sum(-1, keepdim=True)
     o = torch.einsum("bkgcs,bskh->bckgh", pbar / torch.clamp(l, min=1e-30),
                      v.float())
-    o = o.reshape(B, 1, h * hd).to(x.dtype)
-    return o @ p["wo"], cache
+    o = o.reshape(B, 1, hq * hd).to(x.dtype)
+    return _row_parallel(ac, o, p["wo"], h * hd), cache
 
 
 # ---------------------------------------------------------------------------
@@ -268,10 +398,14 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
 
 
-def ffn(x, p: Params, cfg: ModelConfig):
+def ffn(x, p: Params, cfg: ModelConfig, ac=None):
+    """The dense FFN; on a split mesh column-parallel in, row-parallel
+    out."""
+    x = _mm_input(ac, x)
     if cfg.act == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    return _gelu(x @ p["w1"]) @ p["w2"]
+        return _row_parallel(ac, F.silu(x @ p["wg"]) * (x @ p["wu"]),
+                             p["wd"], cfg.d_ff)
+    return _row_parallel(ac, _gelu(x @ p["w1"]), p["w2"], cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------
@@ -279,10 +413,12 @@ def ffn(x, p: Params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def moe_ffn(x, p: Params, cfg: ModelConfig):
+def moe_ffn(x, p: Params, cfg: ModelConfig, ac=None):
+    """The MoE over the whole ``x`` (its sequence already gathered on a
+    split mesh: the caller's ``mm_input``)."""
     if cfg.moe_impl == "grouped":
-        return moe_ffn_grouped(x, p, cfg)
-    return moe_ffn_global(x, p, cfg)
+        return moe_ffn_grouped(x, p, cfg, ac)
+    return moe_ffn_global(x, p, cfg, ac)
 
 
 def topk(logits, K: int):
@@ -350,7 +486,30 @@ def _expert_products(buf, p: Params, cfg: ModelConfig, counts):
     return moe_gmm(_gelu(moe_gmm(buf, p["w1"], counts)), p["w2"], counts)
 
 
-def moe_ffn_global(x, p: Params, cfg: ModelConfig):
+def _experts_of(ac, p: Params, cfg: ModelConfig):
+    """(first expert, expert count, whether ``d_ff`` is split) of this
+    rank's expert weights: all experts whole on one device; on a split
+    mesh its block of the experts (EP) or of every expert's ``d_ff``
+    (expert-TP), as the rules place them."""
+    w_out = p["wd"] if cfg.act == "swiglu" else p["w2"]
+    E_local = w_out.shape[0]
+    first = 0 if ac is None or E_local == cfg.moe.n_experts \
+        else ac.index * E_local
+    return first, E_local, w_out.shape[1] < cfg.moe.d_ff_expert
+
+
+def _expert_outputs(ac, outs, E: int, f_split: bool, dim: int):
+    """This rank's expert outputs (``outs``, its experts along ``dim``)
+    made every expert's: gathered over the ranks (EP), or its ``d_ff``
+    partial sums added (expert-TP)."""
+    if ac is None:
+        return outs
+    if outs.shape[dim] < E:
+        return ac.gather(outs, dim)
+    return ac.sum(outs) if f_split else outs
+
+
+def moe_ffn_global(x, p: Params, cfg: ModelConfig, ac=None):
     """Sort-based top-k MoE with static capacity (tokens over capacity are
     dropped, matching capacity-factor semantics) over all B*S tokens at
     once.  x: [B,S,D]."""
@@ -372,7 +531,11 @@ def moe_ffn_global(x, p: Params, cfg: ModelConfig):
     # dropped entries land in a spare expert row that is cut off
     buf = torch.zeros((E + 1, C, D), dtype=x.dtype, device=x.device)
     buf[slot_e, slot_c] = xf[tok]
-    out_buf = _expert_products(buf[:E], p, cfg, counts)
+    # this rank's experts (all on one device; EP) or its slice of d_ff
+    e0, El, f_split = _experts_of(ac, p, cfg)
+    out_buf = _expert_outputs(
+        ac, _expert_products(buf[e0:e0 + El], p, cfg, counts[e0:e0 + El]),
+        E, f_split, 0)
 
     gathered = out_buf[sorted_e, slot_c]                      # [T*K, D]
     w = gates.reshape(-1)[order] * keep.to(gates.dtype)
@@ -380,7 +543,7 @@ def moe_ffn_global(x, p: Params, cfg: ModelConfig):
     return _combine(contrib, tok, K).reshape(B, S, D).to(x.dtype)
 
 
-def moe_ffn_grouped(x, p: Params, cfg: ModelConfig):
+def moe_ffn_grouped(x, p: Params, cfg: ModelConfig, ac=None):
     """Group-local MoE dispatch: routing, sort, capacity, scatter and
     combine within each batch row (capacity enforced per row).  The
     expert products run one grouped matmul per batch row and weight."""
@@ -402,8 +565,10 @@ def moe_ffn_grouped(x, p: Params, cfg: ModelConfig):
     xg = torch.gather(x, 1, tok[..., None].expand(B, SK, D))  # [B,SK,D]
     buf = torch.zeros((B, E + 1, C, D), dtype=x.dtype, device=x.device)
     buf[brow, slot_e, slot_c] = xg
-    out_buf = torch.stack([_expert_products(buf[b, :E], p, cfg, counts[b])
-                           for b in range(B)])
+    e0, El, f_split = _experts_of(ac, p, cfg)
+    out_buf = _expert_outputs(ac, torch.stack([
+        _expert_products(buf[b, e0:e0 + El], p, cfg, counts[b, e0:e0 + El])
+        for b in range(B)]), E, f_split, 1)
 
     gathered = out_buf[brow, sorted_e, slot_c]                # [B,SK,D]
     w = torch.gather(gates.reshape(B, SK), 1, order) * keep.to(gates.dtype)
@@ -422,7 +587,12 @@ def moe_aux_loss(x, p: Params, cfg: ModelConfig):
     logits = (x.reshape(T, -1) @ p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     _, idx = topk(logits, m.top_k)
-    counts = torch.bincount(idx.reshape(-1), minlength=m.n_experts).float()
+    # the reference's .at[idx].add(1.0): whole numbers, exact in any order
+    flat = idx.reshape(-1)
+    counts = torch.zeros(m.n_experts, dtype=torch.float32,
+                         device=x.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=x.device))
     frac_tokens = counts / (T * m.top_k)
     frac_probs = probs.mean(dim=0)
     return m.n_experts * torch.sum(frac_tokens * frac_probs)
@@ -456,10 +626,14 @@ def _log_sigmoid(x):
     return -F.softplus(-x)            # the JAX layers' -softplus(-x)
 
 
-def _rglru_gates(u, p: Params):
-    """The decay ``a`` and input scale ``b`` of each step, f32 [B,S,dr]."""
-    r = torch.sigmoid((u @ p["w_r"]).float())
-    i = torch.sigmoid((u @ p["w_i"]).float())
+def _rglru_gates(u, p: Params, ac=None):
+    """The decay ``a`` and input scale ``b`` of each step, f32 [B,S,dr]
+    (this rank's channels where they are split: the gates' products read
+    every channel of ``u``, gathered)."""
+    uw = ac.gather(u, 2) if ac is not None and \
+        u.shape[-1] < p["w_r"].shape[0] else u
+    r = torch.sigmoid((uw @ p["w_r"]).float())
+    i = torch.sigmoid((uw @ p["w_i"]).float())
     log_a = _RG_C * r * _log_sigmoid(p["lam"].float())
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
@@ -480,23 +654,28 @@ def _causal_conv(u, w, state=None):
     return out, full[:, full.shape[1] - (cw - 1):]
 
 
-def rglru(x, p: Params, cfg: ModelConfig, state=None):
+def rglru(x, p: Params, cfg: ModelConfig, state=None, ac=None):
     """x: [B,S,D] -> (y [B,S,D], new state).  state: {"h": [B,dr] f32,
     "conv": [B,cw-1,dr]}, zeros when None.  One function for the prefill
     and the decode (S = 1): both run the recurrence on the RG-LRU scan
-    kernel, from ``h0`` zeros or the state's ``h``."""
+    kernel, from ``h0`` zeros or the state's ``h``.  On a split mesh the
+    gates, the conv and the scan run on this rank's channels
+    ``[B, S, dr/n]`` (and the state holds them), ``w_out``
+    row-parallel."""
+    x = _mm_input(ac, x)
     B, S, D = x.shape
     u = x @ p["w_in_rec"]
     gate = _gelu(x @ p["w_in_gate"])
     u, new_conv = _causal_conv(u, p["conv_w"],
                                None if state is None else state["conv"])
-    a, b = _rglru_gates(u, p)                    # [B,S,dr] f32
+    a, b = _rglru_gates(u, p, ac)                # [B,S,dr] f32
     bu = b * u.float()
     h0 = torch.zeros((B, u.shape[-1]), dtype=torch.float32,
                      device=x.device) if state is None \
         else state["h"].float()
     hs, h_final = rglru_scan(a, bu, h0)
-    y = (hs.to(x.dtype) * gate) @ p["w_out"]
+    y = _row_parallel(ac, hs.to(x.dtype) * gate, p["w_out"],
+                      cfg.d_rnn or cfg.d_model)
     return y, {"h": h_final, "conv": new_conv}
 
 

@@ -21,12 +21,19 @@ group body); :meth:`Model.encode`, :meth:`Model.prefill` and
 
 A model lives on one device: ``cuda:0`` unless the caller names another
 (``device="cpu"`` runs the kernels' plain versions; ``"meta"`` allocates
-nothing, for parameter counts).  On a mesh of several ranks its
-parameters are ``DTensor`` shards and :attr:`Model.executor` (set by
-:meth:`repro_torch.parallel.executor.MeshExecutor.bind`) makes each
-module's parameters whole right before the module computes and drops
-them after, and exchanges the batch rows around each MoE layer; with no
-executor (one device) every hook below is a plain call.
+nothing, for parameter counts and the dry run).  On a mesh of several
+ranks its parameters are ``DTensor`` shards and :attr:`Model.executor`
+(set by :meth:`repro_torch.parallel.executor.MeshExecutor.bind`) makes
+each module's parameters whole (or this rank's block of their ``model``
+split) right before the module computes and drops them after, and
+exchanges the batch rows around each MoE layer; where ``model`` has
+several ranks, the executor's
+:class:`~repro_torch.parallel.split.ModelSplit` is the ``ac`` hook the
+blocks hand to the layers (the reference's ``ac`` points: heads, FFN
+hidden, experts, RG-LRU channels, the vocab of the embedding and the
+logits with a vocab-parallel cross-entropy, and under ``seq_shard`` a
+residual split over the sequence).  With no executor (one device) every
+hook below is a plain call and ``ac`` is None.
 """
 from __future__ import annotations
 
@@ -79,6 +86,20 @@ def _call(executor, module, fn, *args):
         return fn(*args)
 
 
+def _split_at(executor, seq_len: int):
+    """The executor's :class:`~repro_torch.parallel.split.ModelSplit` for
+    a residual of ``seq_len`` positions, or None (one device, or whole
+    layers)."""
+    ac = executor.model_split() if executor is not None else None
+    return None if ac is None else ac.at(seq_len)
+
+
+def _whole_columns(ac, y, n: int):
+    """A product's output whole: its ``n`` columns gathered where the
+    weight's columns are split over ``model``."""
+    return ac.gather(y, -1) if ac is not None and y.shape[-1] < n else y
+
+
 #: the recurrent mixers, by block kind: the keys of their state (cache)
 STATE_KEYS = {RGLRU: ("h", "conv"), MLSTM: ("C", "n", "m"),
               SLSTM: ("c", "n", "h", "m")}
@@ -107,6 +128,10 @@ class Block(nn.Module):
         if init is None:
             raise ValueError(spec.mixer)
         self.mixer = ParamDict(init(cfg, dtype, device, generator))
+        # the mLSTM's fused w_qkv splits by columns that are not
+        # head-aligned, and the sLSTM is a per-step loop: on a split mesh
+        # their mixers compute whole, on every rank
+        self.mixer.whole = spec.mixer in (MLSTM, SLSTM)
         if spec.cross_attn:
             self.norm_cross = ParamDict(L.init_norm(cfg, dtype, device))
             self.cross = ParamDict(L.init_attention(cfg, dtype, device,
@@ -162,77 +187,122 @@ class Block(nn.Module):
                       for n in ("cross_k", "cross_v")})
         return c
 
-    def _recurrent(self, h, state=None):
+    def _recurrent(self, h, state=None, ac=None):
         """The recurrent mixer over ``h``: (y, new state).  The layer is
-        looked up at the call, so that a harness can patch it."""
+        looked up at the call, so that a harness can patch it.  On a
+        split mesh the RG-LRU splits its channels; the mLSTM and the
+        sLSTM compute whole on the gathered sequence."""
         layer = {RGLRU: L.rglru, MLSTM: L.mlstm,
                  SLSTM: L.slstm}[self.spec.mixer]
-        return layer(h, self.mixer.p, self.cfg, state)
+        if ac is None:
+            return layer(h, self.mixer.p, self.cfg, state)
+        if self.spec.mixer == RGLRU:
+            return layer(h, self.mixer.p, self.cfg, state, ac=ac)
+        y, state = layer(ac(h, "mm_input"), self.mixer.p, self.cfg, state)
+        return (ac.own(y, 1) if ac.seq else y), state
 
-    def _cross(self, x, k, v):
+    def state_dims(self, ac) -> Dict[str, Optional[int]]:
+        """The dim of each recurrent state tensor that the mixer splits
+        over ``model`` (None: whole): the RG-LRU's channels where the
+        split divides them."""
+        split = ac is not None and self.spec.mixer == RGLRU and \
+            (self.cfg.d_rnn or self.cfg.d_model) % ac.n == 0
+        dims = {"h": 1, "conv": 2} if split else {}
+        return {n: dims.get(n) for n in STATE_KEYS[self.spec.mixer]}
+
+    def cache_dims(self, ac) -> Dict[str, Optional[int]]:
+        """The dim of each cache tensor that :meth:`prefill` returns split
+        over ``model`` (None: whole): kv heads where the split divides
+        them, the RG-LRU state's channels."""
+        if self.spec.mixer in STATE_KEYS:
+            dims = self.state_dims(ac)
+        else:
+            heads = 2 if ac is not None and \
+                self.cfg.n_kv_heads % ac.n == 0 else None
+            dims = {"k": heads, "v": heads}
+        if self.spec.cross_attn:
+            heads = 1 if ac is not None and \
+                self.cfg.n_kv_heads % ac.n == 0 else None
+            dims.update(cross_k=heads, cross_v=heads)
+        return dims
+
+    def _cross(self, x, k, v, ac=None, kv_split=None):
         """x plus the cross-attention on an encoder's k/v ``[B, Hkv,
         S_enc, hd]``."""
         h = L.apply_norm(x, self.norm_cross.p, self.cfg)
-        return x + L.cross_attention(h, self.cross.p, self.cfg, k, v)
+        if ac is None:
+            return x + L.cross_attention(h, self.cross.p, self.cfg, k, v)
+        return x + L.cross_attention(h, self.cross.p, self.cfg, k, v, ac,
+                                     kv_split)
 
-    def _ffn(self, x, aux: Optional[list] = None):
+    def _ffn(self, x, aux: Optional[list] = None, ac=None):
         """x plus the FFN; a MoE block appends its load-balancing loss to
         ``aux`` when given.  On a mesh the MoE routes every token of the
         batch, as on one device: the executor gathers the rows of all
-        ranks before it and keeps this rank's after."""
+        ranks before it (and a sequence split over ``model``) and keeps
+        this rank's after."""
         if self.spec.ffn == NO_FFN:
             return x
         h = L.apply_norm(x, self.norm2.p, self.cfg)
         if self.spec.ffn == DENSE_FFN:
-            return x + L.ffn(h, self.ffn.p, self.cfg)
+            return x + L.ffn(h, self.ffn.p, self.cfg, ac)
         ex = self.executor
+        if ac is not None:
+            h = ac(h, "mm_input")
         if ex is not None:
             h = ex.gather_rows(h)
         if aux is not None:
             aux.append(L.moe_aux_loss(h, self.ffn.p, self.cfg))
-        y = L.moe_ffn(h, self.ffn.p, self.cfg)
-        return x + (y if ex is None else ex.own_rows(y))
+        y = L.moe_ffn(h, self.ffn.p, self.cfg, ac)
+        if ex is not None:
+            y = ex.own_rows(y)
+        if ac is not None and ac.seq:
+            y = ac.own(y, 1)
+        return x + y
 
-    def forward_train(self, x, positions, enc_out=None):
+    def forward_train(self, x, positions, enc_out=None, ac=None):
         """The block over a whole training sequence, with autograd:
         returns (x, the MoE load-balancing loss or None).  The reference's
         ``block_apply``."""
         h = L.apply_norm(x, self.norm1.p, self.cfg)
         if self.spec.mixer in STATE_KEYS:
-            y, _ = self._recurrent(h)
+            y, _ = self._recurrent(h, ac=ac)
         else:
             y, _, _ = L.attention(h, self.mixer.p, self.cfg,
-                                  window=self.window, positions=positions)
+                                  window=self.window, positions=positions,
+                                  ac=ac)
         x = x + y
         if self.spec.cross_attn and enc_out is not None:
-            x = self._cross(x, *L.cross_kv(enc_out, self.cross.p, self.cfg))
+            x = self._cross(x, *L.cross_kv(enc_out, self.cross.p, self.cfg,
+                                           ac), ac)
         aux: list = []
-        x = self._ffn(x, aux)
+        x = self._ffn(x, aux, ac)
         return x, (aux[0] if aux else None)
 
-    def encode(self, x, positions):
+    def encode(self, x, positions, ac=None):
         """An encoder block over the whole input: bidirectional attention
         and the FFN; no cache."""
         h = L.apply_norm(x, self.norm1.p, self.cfg)
         y, _, _ = L.attention(h, self.mixer.p, self.cfg, causal=False,
-                              positions=positions)
-        return self._ffn(x + y)
+                              positions=positions, ac=ac)
+        return self._ffn(x + y, ac=ac)
 
-    def prefill(self, x, positions, cache_len: int, enc_out=None):
+    def prefill(self, x, positions, cache_len: int, enc_out=None, ac=None):
         """The block over the full prompt, and cross-attention on
         ``enc_out [B, S_enc, D]`` where the block has it and an encoder
-        output is given; returns (x, filled cache)."""
+        output is given; returns (x, filled cache), the cache split as
+        :meth:`cache_dims` says."""
         cfg = self.cfg
         h = L.apply_norm(x, self.norm1.p, cfg)
         if self.spec.mixer in STATE_KEYS:
-            y, state = self._recurrent(h)
+            y, state = self._recurrent(h, ac=ac)
             # copies of strided views (the conv tail, the mLSTM's n), so
             # that the cache does not hold the tensors they slice
             cache = {n: t.contiguous() for n, t in state.items()}
         else:
-            S = x.shape[1]
             y, k, v = L.attention(h, self.mixer.p, cfg, window=self.window,
-                                  positions=positions)
+                                  positions=positions, ac=ac)
+            S = k.shape[1]  # the whole prompt (x is a slice of it under SP)
             if cache_len >= S:
                 pad = (0, 0, 0, 0, 0, cache_len - S)
                 k, v = torch.nn.functional.pad(k, pad), \
@@ -244,27 +314,37 @@ class Block(nn.Module):
             cache = {"k": k.contiguous(), "v": v.contiguous()}
         x = x + y
         if self.spec.cross_attn and enc_out is not None:
-            ck, cv = L.cross_kv(enc_out, self.cross.p, cfg)
-            x = self._cross(x, ck, cv)
+            ck, cv = L.cross_kv(enc_out, self.cross.p, cfg, ac)
+            x = self._cross(x, ck, cv, ac)
             cache.update(cross_k=ck, cross_v=cv)
-        return self._ffn(x), cache
+        return self._ffn(x, ac=ac), cache
 
-    def decode(self, x, cache: Cache, pos: int):
+    def decode(self, x, cache: Cache, pos: int, ac=None, dims=None):
         """One token; writes its k/v, or the new recurrent state, into
-        ``cache`` in place."""
+        ``cache`` in place.  On a split mesh ``dims`` gives the dim of
+        each cache tensor that is split over ``model`` (None: whole): the
+        attention reads its cache as it is split, a recurrent state is
+        cut to the mixer's split for the step and back."""
+        dims = dims or {}
         h = L.apply_norm(x, self.norm1.p, self.cfg)
         keys = STATE_KEYS.get(self.spec.mixer)
         if keys is not None:
-            y, state = self._recurrent(h, {n: cache[n] for n in keys})
+            want = self.state_dims(ac)
+            relayout = (lambda t, a, b: t) if ac is None else ac.relayout
+            y, state = self._recurrent(
+                h, {n: relayout(cache[n], dims.get(n), want[n])
+                    for n in keys}, ac)
             for n in keys:
-                cache[n].copy_(state[n])
+                cache[n].copy_(relayout(state[n], want[n], dims.get(n)))
         else:
             y, cache = L.attention_decode(h, self.mixer.p, self.cfg, cache,
-                                          pos, window=self.window)
+                                          pos, window=self.window, ac=ac,
+                                          kv_split=dims.get("k"))
         x = x + y
         if self.spec.cross_attn:
-            x = self._cross(x, cache["cross_k"], cache["cross_v"])
-        return self._ffn(x), cache
+            x = self._cross(x, cache["cross_k"], cache["cross_v"], ac,
+                            dims.get("cross_k"))
+        return self._ffn(x, ac=ac), cache
 
 
 #: the encoder's block: bidirectional attention and a dense FFN
@@ -291,15 +371,21 @@ class Encoder(nn.Module):
     def forward(self, x, remat: bool = False):
         """x [B, S_enc, D] (the projected frames) -> the encoder's output
         [B, S_enc, D]; RoPE over positions ``0 .. S_enc - 1``.  With
-        ``remat`` each block is recomputed in the backward pass."""
+        ``remat`` each block is recomputed in the backward pass.  On a
+        split mesh under SP the residual holds this rank's slice of the
+        frames, and the output is gathered whole."""
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         ex = self.executor
+        ac = _split_at(ex, x.shape[1])
+        if ac is not None and ac.seq:
+            x = ac.own(x, 1)
         for blk in self.blocks:
-            x = checkpoint(_call, ex, blk, blk.encode, x, positions,
+            x = checkpoint(_call, ex, blk, blk.encode, x, positions, ac,
                            use_reentrant=False) \
-                if remat else _call(ex, blk, blk.encode, x, positions)
+                if remat else _call(ex, blk, blk.encode, x, positions, ac)
         with _gathered(ex, self.final_norm):
-            return L.apply_norm(x, self.final_norm.p, self.cfg)
+            x = L.apply_norm(x, self.final_norm.p, self.cfg)
+        return ac.gather(x, 1) if ac is not None and ac.seq else x
 
 
 class Model(nn.Module):
@@ -348,15 +434,45 @@ class Model(nn.Module):
 
     # -- embedding / logits ------------------------------------------------
     def _embed(self, tokens):
+        """The tokens' embeddings; where the table's vocab rows are split
+        over ``model``, each rank looks up the tokens of its rows (zeros
+        for the others) and the lookups are summed over ``model``."""
+        ac = _split_at(self.executor, 0)
         with _gathered(self.executor, self, ("embed",)):
-            return self.embed[tokens].to(self.compute_dtype)
+            V_local = self.embed.shape[0]
+            if ac is None or V_local == self.cfg.padded_vocab:
+                return self.embed[tokens].to(self.compute_dtype)
+            local = tokens.long() - ac.index * V_local
+            inside = (local >= 0) & (local < V_local)
+            e = self.embed[local.clamp(0, V_local - 1)] \
+                * inside[..., None].to(self.embed.dtype)
+        return ac.sum(e.to(self.compute_dtype))
 
     def _logits(self, x):
-        """f32 logits over the padded vocab."""
+        """f32 logits over the padded vocab: this rank's slice of it where
+        the head's vocab is split over ``model``."""
         name = "embed" if self.cfg.tie_embeddings else "lm_head"
         with _gathered(self.executor, self, (name,)):
             w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
             return (x @ w.to(x.dtype)).float()
+
+    def _nll(self, logits, labels, ac=None):
+        """Each position's negative log-likelihood of its label, f32.  On
+        a vocab split over ``model``: the max and the sum of exponentials
+        combined over ``model`` (a log-sum-exp), the label's logit taken
+        by the rank that holds it."""
+        V_local = logits.shape[-1]
+        if ac is None or V_local == self.cfg.padded_vocab:
+            # the label's logit by a gather: the reference's one-hot sum
+            # adds exact zeros to it
+            return torch.logsumexp(logits, dim=-1) \
+                - logits.gather(-1, labels[..., None])[..., 0]
+        m = ac.max(logits.amax(-1, keepdim=True))
+        lse = torch.log(ac.sum(torch.exp(logits - m).sum(-1))) + m[..., 0]
+        local = labels - ac.index * V_local
+        inside = (local >= 0) & (local < V_local)
+        own = logits.gather(-1, local.clamp(0, V_local - 1)[..., None])
+        return lse - ac.sum(own[..., 0] * inside.to(own.dtype))
 
     def _final_norm(self, x):
         with _gathered(self.executor, self.final_norm):
@@ -376,6 +492,8 @@ class Model(nn.Module):
             with _gathered(self.executor, self.frontend):
                 e = batch["embeds"].to(x.dtype) @ self.frontend.p["proj"] \
                     .to(x.dtype)
+            e = _whole_columns(_split_at(self.executor, 0), e,
+                               self.cfg.d_model)
             x = torch.cat([e, x], dim=1)
             mask = torch.cat([torch.zeros((B, e.shape[1]),
                                           dtype=torch.float32,
@@ -398,6 +516,7 @@ class Model(nn.Module):
         dt = self.compute_dtype
         with _gathered(self.executor, self.frontend):
             e = enc_embeds.to(dt) @ self.frontend.p["proj"].to(dt)
+        e = _whole_columns(_split_at(self.executor, 0), e, self.cfg.d_model)
         return self.enc(e, remat)
 
     def train_terms(self, batch, *, remat: bool = True):
@@ -414,23 +533,26 @@ class Model(nn.Module):
         groups = [[] for _ in self.cfg.layer_groups] \
             if self.cfg.moe is not None else None
         ex = self.executor
+        ac = _split_at(ex, x.shape[1])
+        if ac is not None and ac.seq:
+            x = ac.own(x, 1)
         for blk, g in zip(self.blocks, self.group_of):
             x, aux = checkpoint(_call, ex, blk, blk.forward_train, x,
-                                positions, enc_out, use_reentrant=False) \
+                                positions, enc_out, ac,
+                                use_reentrant=False) \
                 if remat else _call(ex, blk, blk.forward_train, x,
-                                    positions, enc_out)
+                                    positions, enc_out, ac)
             if groups is not None and aux is not None:
                 groups[g].append(aux)
         x = self._final_norm(x)
+        if ac is not None and ac.seq:
+            x = ac.gather(x, 1)
         tokens = batch["tokens"]
         F = x.shape[1] - tokens.shape[1]
         logits = self._logits(x[:, F:][:, :-1])          # [B, S-1, Vp] f32
         labels = tokens[:, 1:].long()
         lmask = mask[:, F + 1:]
-        # the label's logit by a gather: the reference's one-hot sum adds
-        # exact zeros to it
-        nll = torch.logsumexp(logits, dim=-1) \
-            - logits.gather(-1, labels[..., None])[..., 0]
+        nll = self._nll(logits, labels, ac)
         per_group = [torch.stack(a).sum() if a else
                      torch.zeros((), device=nll.device)
                      for a in groups or ()]
@@ -472,22 +594,39 @@ class Model(nn.Module):
             enc_out = self.encode(batch["enc_embeds"])
         S = x.shape[1]
         cache_len = cache_len or S
+        ac = _split_at(self.executor, S)
+        if ac is not None and ac.seq:
+            x = ac.own(x, 1)
         caches = []
         for blk in self.blocks:
             x, c = _call(self.executor, blk, blk.prefill, x, positions,
-                         blk.cache_len(cache_len), enc_out)
+                         blk.cache_len(cache_len), enc_out, ac)
             caches.append(c)
         x = self._final_norm(x)
+        if ac is not None and ac.seq:
+            x = ac.gather(x, 1)
         return self._logits(x[:, -1:, :]), caches
 
+    def cache_dims(self) -> List[Dict[str, Optional[int]]]:
+        """For each block, the dim of each cache tensor that
+        :meth:`prefill` returns split over ``model`` (None: whole; all
+        None without a split)."""
+        ac = _split_at(self.executor, 0)
+        return [blk.cache_dims(ac) for blk in self.blocks]
+
     @torch.no_grad()
-    def decode_step(self, tokens, caches: List[Cache], pos: int):
+    def decode_step(self, tokens, caches: List[Cache], pos: int,
+                    dims=None):
         """One decode step.  tokens: [B,1]; pos: the number of tokens
         already in the cache.  Returns (logits [B,1,Vp] f32, caches), the
-        caches updated in place."""
+        caches updated in place.  On a split mesh ``dims`` gives, for
+        each block, the dim of each cache tensor split over ``model``
+        (None: whole), and the logits are this rank's vocab slice."""
+        ac = _split_at(self.executor, 1)
         x = self._embed(tokens)
-        for blk, c in zip(self.blocks, caches):
-            x, _ = _call(self.executor, blk, blk.decode, x, c, int(pos))
+        for i, (blk, c) in enumerate(zip(self.blocks, caches)):
+            x, _ = _call(self.executor, blk, blk.decode, x, c, int(pos), ac,
+                         dims[i] if dims is not None else None)
         x = self._final_norm(x)
         return self._logits(x), caches
 

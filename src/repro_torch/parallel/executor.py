@@ -4,27 +4,36 @@ several ranks, computing on plain tensors.
 The state (the parameters, AdamW's ``m`` and ``v``) is ``DTensor``s
 placed by :class:`~repro_torch.parallel.sharding.MeshRules`, so each
 rank holds the bytes the reference's specs give it (ZeRO-3 over the fsdp
-axes, and over ``model`` where a rule names it).  The compute is not
-split: each rank runs whole layers on its rows of the batch (rows split
-over the fsdp axes, as ``batch_specs`` splits them; a sequence split
-over ``model`` is gathered first).  The model asks this executor, through
-its hooks (:class:`~repro_torch.models.model.Model`), for:
+axes, and over ``model`` where a rule names it).  Each rank computes on
+its rows of the batch (rows split over the fsdp axes, as ``batch_specs``
+splits them; a sequence split over ``model`` is gathered first, and cut
+again by the model under SP).  Where ``model`` has more than one rank,
+the compute is split over it as the reference's ``ac`` constraints make
+GSPMD split it (:class:`~repro_torch.parallel.split.ModelSplit`: heads,
+FFN hidden, experts, RG-LRU channels, vocab and, under ``seq_shard``,
+the sequence); with ``split=False``, or a ``model`` of one rank, each
+rank runs whole layers.  The model asks this executor, through its hooks
+(:class:`~repro_torch.models.model.Model`), for:
 
 * **parameters**: each block, the embedding, the head and the norms
   gather theirs right before use (an all-gather over their sharded mesh
-  dims) and drop them after; under remat the recompute gathers again.
-  In the backward pass each gathered tensor's gradient, a partial sum on
-  every rank, is reduced into its parameter's placements: a
-  reduce-scatter over each sharded mesh dim, then one all-reduce over
-  all the replicated dims together (one flattened group), so that every
-  replica of a shard receives the same bits.  That is the reference's
-  ``pin_grads``.
+  dims, ``model`` excepted where the compute is split, unless the block
+  computes whole: the mLSTM and sLSTM mixers, whose fused ``w_qkv`` is
+  split by columns that are not head-aligned and whose sLSTM is a
+  per-step loop) and drop them after; under remat the recompute gathers
+  again.  In the backward pass each gathered tensor's gradient, a partial
+  sum on every rank, is reduced into its parameter's placements: a
+  reduce-scatter over each gathered sharded mesh dim, then one all-reduce
+  over all the replicated dims together (one flattened group), so that
+  every replica of a shard receives the same bits.  That is the
+  reference's ``pin_grads``.
 * **MoE rows**: the reference routes all tokens of the batch at once
   (expert capacity is ranked over all of them, and the load-balancing
   loss takes its statistics over all of them).  So at each MoE layer the
   rows of every rank are gathered, routed and computed alike on every
-  rank, and each rank keeps its own rows of the output; the gradient of
-  the gathered rows is summed over the ranks, each keeping its own.
+  rank (each ``model`` rank computing its experts, or its slice of
+  ``d_ff``), and each rank keeps its own rows of the output; the gradient
+  of the gathered rows is summed over the ranks, each keeping its own.
 * **the loss**: ranks along a replicated mesh dim (``model``, unless the
   batch cannot be split) hold the same rows, so each rank's share of the
   loss is its rows' summed log-likelihood over the label count of the
@@ -40,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import math
+import types
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -48,6 +58,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .sharding import MeshRules, distribute, placements
+from .split import ModelSplit
 
 
 class _Gather(torch.autograd.Function):
@@ -56,10 +67,15 @@ class _Gather(torch.autograd.Function):
     placements."""
 
     @staticmethod
-    def forward(ctx, local, ex, pl):
-        ctx.ex, ctx.pl = ex, pl
-        full = DTensor.from_local(local, ex.mesh, pl,
-                                  run_check=False).full_tensor()
+    def forward(ctx, local, ex, pl, keep):
+        ctx.ex, ctx.pl, ctx.keep = ex, pl, keep
+        dt = DTensor.from_local(local, ex.mesh, pl, run_check=False)
+        if keep is None:
+            full = dt.full_tensor()
+        else:  # whole but for mesh dim ``keep``'s split
+            full = dt.redistribute(ex.mesh, [
+                p if i == keep else Replicate()
+                for i, p in enumerate(pl)]).to_local()
         # a replicated shard comes back as itself: a new tensor for
         # autograd
         return full.clone() if full.data_ptr() == local.data_ptr() \
@@ -67,7 +83,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.ex.reduce(g, ctx.pl), None, None
+        return ctx.ex.reduce(g, ctx.pl, ctx.keep), None, None, None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -92,15 +108,23 @@ class _GatherRows(torch.autograd.Function):
 class MeshExecutor:
     """Runs models on ``rules.mesh`` (a ``DeviceMesh`` of several ranks)."""
 
-    def __init__(self, rules: MeshRules):
+    def __init__(self, rules: MeshRules, split: bool = True):
         if not rules.sharded:
             raise ValueError("a mesh executor needs a mesh of several ranks")
         self.rules = rules
+        self.split = split
         self.mesh = mesh = rules.mesh
         self.names = list(mesh.mesh_dim_names)
         self.size = mesh.size()
         self.coord = mesh.get_coordinate()
         self.specs = rules.named_param_specs()
+        # the compute split over ``model`` (None: whole layers)
+        self.tp_dim = self.names.index(rules.tp) if rules.tp else None
+        n_tp = mesh.size(self.tp_dim) if self.tp_dim is not None else 1
+        self._split = ModelSplit(
+            mesh.get_group(self.tp_dim), n_tp, self.coord[self.tp_dim],
+            rules.pcfg.seq_shard) \
+            if split and n_tp > 1 else None
         # one group for each set of two or more mesh dims: the ranks that
         # differ only in those dims (every rank creates every group, in
         # the same order)
@@ -125,6 +149,11 @@ class MeshExecutor:
         if len(dims) == 1:
             return self.mesh.get_group(dims[0])
         return self._groups[dims]
+
+    def model_split(self):
+        """The :class:`ModelSplit` the layers compute by, or None where
+        each rank computes whole layers."""
+        return self._split
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over every rank of the mesh, in one reduction
@@ -182,6 +211,58 @@ class MeshExecutor:
                                 self.row_placements(), run_check=False)
         return dt.redistribute(self.mesh, placements(self.mesh, spec))
 
+    def model_dim(self, dt: DTensor):
+        """The tensor dim that ``dt`` splits over ``model`` (None)."""
+        p = dt.placements[self.tp_dim] if self.tp_dim is not None else None
+        return p.dim if isinstance(p, Shard) else None
+
+    def place_logits(self, logits: torch.Tensor) -> DTensor:
+        """This rank's logits ``[B_rows, S, V or V/n]`` as a ``DTensor``
+        split by rows (and by vocab over ``model`` where it is split)."""
+        pl = self.row_placements()
+        if self._split is not None and \
+                logits.shape[-1] < self.rules.cfg.padded_vocab:
+            pl[self.tp_dim] = Shard(logits.dim() - 1)
+        return DTensor.from_local(logits, self.mesh, pl, run_check=False)
+
+    def place_caches(self, caches, dims):
+        """Caches of this rank's rows, each tensor split over ``model``
+        along ``dims`` (None: whole), as ``DTensor``s placed by the rules'
+        cache specs: each is cut or gathered over ``model`` to its spec's
+        split."""
+        ac = self._split
+
+        def whole(t, d):  # the whole tensor's shape, for its spec
+            shape = list(t.shape)
+            shape[0] *= self.n_row_shards
+            if d is not None:
+                shape[d] *= ac.n
+            return types.SimpleNamespace(shape=tuple(shape), ndim=t.ndim)
+        specs = self.rules.cache_specs([
+            {n: whole(t, d[n]) for n, t in c.items()}
+            for c, d in zip(caches, dims)])
+        out = []
+        for c, d, s in zip(caches, dims, specs):
+            placed = {}
+            for n, t in c.items():
+                pl = placements(self.mesh, s[n])
+                want = pl[self.tp_dim].dim \
+                    if isinstance(pl[self.tp_dim], Shard) else None
+                placed[n] = DTensor.from_local(
+                    ac.relayout(t, d[n], want).contiguous(), self.mesh, pl,
+                    run_check=False)
+            out.append(placed)
+        return out
+
+    def greedy(self, logits: DTensor) -> torch.Tensor:
+        """The greedy tokens ``[B_rows, 1]`` of this rank's rows from the
+        logits of a step (:meth:`place_logits`): the argmax of each row's
+        last position, taken across the vocab split where there is one."""
+        local = logits.to_local()[:, -1]
+        if self.model_dim(logits) is None:
+            return local.argmax(-1)[:, None]
+        return self._split.argmax(local)[:, None]
+
     def rows_of(self, dt: DTensor) -> torch.Tensor:
         """This rank's rows of ``dt``, whole along every other dimension."""
         return dt.redistribute(self.mesh, self.row_placements()).to_local()
@@ -228,8 +309,10 @@ class MeshExecutor:
     @contextlib.contextmanager
     def gathered(self, module: nn.Module, names=None):
         """Within the context, ``module``'s parameters (only its own ones
-        in ``names``, where given) are whole tensors, gathered from their
-        shards with the gradient's reduction attached."""
+        in ``names``, where given) are gathered from their shards with the
+        gradient's reduction attached: whole, or this rank's block of
+        their ``model`` split where the compute is split (unless their
+        module is marked ``whole``)."""
         items = [(module, n) for n in names] if names is not None else \
             [(m, n) for m in module.modules() for n in m._parameters]
         saved = []
@@ -238,21 +321,28 @@ class MeshExecutor:
                 p = m._parameters[n]
                 if isinstance(p, DTensor):
                     saved.append((m, n, p))
-                    m._parameters[n] = _Gather.apply(
-                        p.to_local(), self, tuple(p.placements))
+                    pl = tuple(p.placements)
+                    keep = self.tp_dim if (
+                        self._split is not None
+                        and not getattr(m, "whole", False)
+                        and isinstance(pl[self.tp_dim], Shard)) else None
+                    m._parameters[n] = _Gather.apply(p.to_local(), self, pl,
+                                                     keep)
             yield
         finally:
             for m, n, p in saved:
                 m._parameters[n] = p
 
-    def reduce(self, g: torch.Tensor, pl) -> torch.Tensor:
-        """Each rank's partial gradient of a whole tensor, summed over the
+    def reduce(self, g: torch.Tensor, pl, keep=None) -> torch.Tensor:
+        """Each rank's partial gradient of a gathered tensor (whole, or
+        this rank's block of mesh dim ``keep``'s split), summed over the
         mesh into this rank's block under placements ``pl``: a
-        reduce-scatter over each sharded mesh dim, then one all-reduce
-        over the replicated ones together."""
+        reduce-scatter over each other sharded mesh dim, then one
+        all-reduce over the replicated ones together."""
         nd = self.mesh.ndim
         dt = DTensor.from_local(g.contiguous(), self.mesh,
-                                [Partial()] * nd, run_check=False)
+                                [pl[i] if i == keep else Partial()
+                                 for i in range(nd)], run_check=False)
         local = dt.redistribute(self.mesh, [
             p if isinstance(p, Shard) else Partial() for p in pl]).to_local()
         rest = [i for i, p in enumerate(pl) if not isinstance(p, Shard)]

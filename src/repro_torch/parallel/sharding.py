@@ -22,9 +22,11 @@ mesh ``("data", "model")``.  So they need no process group.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig, ParallelCfg
@@ -68,23 +70,72 @@ def placements(mesh, spec: Spec) -> List:
     return out
 
 
-def local_chunk(t: torch.Tensor, mesh, pl) -> torch.Tensor:
-    """This rank's block of the full tensor ``t`` under placements ``pl``
-    (a view; mesh dims in order, each splitting the block before)."""
-    coord = mesh.get_coordinate()
+def local_chunk(t: torch.Tensor, mesh, pl, coord=None) -> torch.Tensor:
+    """This rank's block (or that of the rank at mesh coordinate
+    ``coord``) of the full tensor ``t`` under placements ``pl`` (a view;
+    mesh dims in order, each splitting the block before)."""
+    coord = mesh.get_coordinate() if coord is None else coord
     for i, p in enumerate(pl):
         if isinstance(p, Shard):
             t = t.chunk(mesh.size(i), dim=p.dim)[coord[i]]
     return t
 
 
+def _coordinates(mesh) -> List[List[int]]:
+    """The mesh coordinate of each global rank, by rank (a mesh over
+    every rank of the default group)."""
+    world = dist.get_world_size()
+    if mesh.size() != world:
+        raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
+                         f"{world}")
+    coords = [None] * world
+    for idx in itertools.product(*(range(n) for n in mesh.shape)):
+        coords[int(mesh.mesh[idx])] = list(idx)
+    return coords
+
+
+def gather_to(dt: DTensor, dst: int) -> Optional[torch.Tensor]:
+    """The whole tensor of ``dt`` on global rank ``dst``, None on every
+    other rank: each rank sends its block to ``dst`` alone (one
+    ``gather``), which puts the blocks in place; no other rank holds more
+    than its block."""
+    mesh, pl = dt.device_mesh, dt.placements
+    local = dt.to_local().contiguous()
+    if dist.get_rank() != dst:
+        dist.gather(local, None, dst=dst)
+        return None
+    blocks = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.gather(local, blocks, dst=dst)
+    whole = torch.empty(dt.shape, dtype=local.dtype, device=local.device)
+    for coord, blk in zip(_coordinates(mesh), blocks):
+        local_chunk(whole, mesh, pl, coord).copy_(blk)
+    return whole
+
+
+def scatter_from(t: Optional[torch.Tensor], src: int, mesh, spec, shape,
+                 dtype: torch.dtype, device) -> DTensor:
+    """A ``DTensor`` placed by ``spec`` on ``mesh`` from the whole tensor
+    ``t`` that global rank ``src`` holds (None on the other ranks): ``src``
+    sends each rank its block alone (one ``scatter``)."""
+    pl = placements(mesh, spec)
+    block = local_chunk(torch.empty(shape, device="meta"), mesh, pl).shape
+    out = torch.empty(block, dtype=dtype, device=device)
+    parts = None
+    if dist.get_rank() == src:
+        parts = [local_chunk(t, mesh, pl, c).to(device, dtype).contiguous()
+                 for c in _coordinates(mesh)]
+    dist.scatter(out, parts, src=src)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
 def distribute(t: torch.Tensor, mesh, spec: Spec) -> DTensor:
     """A ``DTensor`` of the full tensor ``t`` (the same on every rank)
-    placed by ``spec``: each rank keeps a contiguous copy of its block;
-    nothing is communicated."""
+    placed by ``spec``: each rank keeps a copy of its block, which holds
+    none of the rest of ``t``; nothing is communicated."""
     pl = placements(mesh, spec)
-    return DTensor.from_local(local_chunk(t, mesh, pl).contiguous(), mesh,
-                              pl, run_check=False)
+    return DTensor.from_local(
+        local_chunk(t, mesh, pl).clone(memory_format=torch.contiguous_format),
+        mesh, pl, run_check=False)
 
 
 class MeshRules:
@@ -265,10 +316,11 @@ class MeshRules:
     def ac(self, x, kind: str):
         """The identity.  The reference's constraints pin activations for
         GSPMD to split the compute over ``model`` (heads, FFN hidden,
-        vocab, experts, sequence).  The port's mesh executor
-        (:mod:`repro_torch.parallel.executor`) does not split the compute:
-        each rank runs whole layers on its batch rows with the parameters
-        gathered, so there is nothing to constrain."""
+        vocab, experts, sequence).  The port splits the compute with
+        collectives at the same points instead
+        (:class:`~repro_torch.parallel.split.ModelSplit`, the hook the
+        mesh executor hands to the layers), so a constraint by itself has
+        nothing to pin."""
         return x
 
 

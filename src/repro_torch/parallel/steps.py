@@ -15,7 +15,8 @@ executor's reduce-scatter and all-reduce) after each microbatch, and
 accumulate there in ``pcfg.grad_dtype``; AdamW updates each rank's
 shards with the global gradient norm; the loss is the whole batch's, on
 every rank.  The prefill and serve steps return the logits split by rows
-and the caches placed by ``rules.cache_specs``.
+(and by vocab where the compute is split over ``model``) and the caches
+placed by ``rules.cache_specs``.
 """
 from __future__ import annotations
 
@@ -137,9 +138,12 @@ def make_serve_step(cfg: ModelConfig, rules: Optional[MeshRules] = None):
     """One batched decode step: ``(model, tokens, caches, pos) -> (logits,
     caches)``.  On one device ``Model.decode_step`` (the caches updated in
     place); on a mesh of several ranks ``tokens`` is a ``DTensor`` or the
-    whole ``[B, 1]`` tensor, each rank decodes its rows with its caches'
-    blocks gathered whole for the step, and the step returns the logits
-    split by rows and new caches placed by ``rules.cache_specs``."""
+    whole ``[B, 1]`` tensor and the caches are ``DTensor``s placed by
+    ``rules.cache_specs``.  Where the compute is split over ``model``,
+    each rank decodes its rows on its own blocks of the caches, updated
+    in place (no cache moves between ranks), and the logits are split by
+    rows and vocab; else each rank gathers its rows' caches whole for the
+    step and the step returns new caches placed by the specs."""
     if _one_device(rules):
         def serve_step(model, tokens, caches, pos):
             return model.decode_step(tokens, caches, pos)
@@ -148,9 +152,16 @@ def make_serve_step(cfg: ModelConfig, rules: Optional[MeshRules] = None):
     def mesh_serve_step(model, tokens, caches, pos):
         ex = model.executor
         tok = ex.local_batch({"tokens": tokens})["tokens"]
-        local = [{n: ex.rows_of(t) for n, t in c.items()} for c in caches]
-        logits, local = model.decode_step(tok, local, pos)
-        return _placed(ex, rules, logits, local)
+        if ex.model_split() is None:
+            local = [{n: ex.rows_of(t) for n, t in c.items()}
+                     for c in caches]
+            logits, local = model.decode_step(tok, local, pos)
+            return _placed(ex, rules, logits, local)
+        dims = [{n: ex.model_dim(t) for n, t in c.items()} for c in caches]
+        logits, _ = model.decode_step(
+            tok, [{n: t.to_local() for n, t in c.items()} for c in caches],
+            pos, dims)
+        return ex.place_logits(logits), caches
     return mesh_serve_step
 
 
@@ -170,13 +181,17 @@ def make_prefill_step(cfg: ModelConfig, rules: Optional[MeshRules] = None,
         ex = model.executor
         logits, caches = model.prefill(ex.local_batch(batch),
                                        cache_len=cache_len)
-        return _placed(ex, rules, logits, caches)
+        if ex.model_split() is None:
+            return _placed(ex, rules, logits, caches)
+        return ex.place_logits(logits), ex.place_caches(
+            caches, model.cache_dims())
     return mesh_prefill_step
 
 
 def _placed(ex, rules: MeshRules, logits, caches):
     """(this rank's rows of the logits as a ``DTensor`` split by rows, the
-    caches as ``DTensor``s placed by their specs)."""
+    caches as ``DTensor``s placed by their specs), from rows whole along
+    every other dimension."""
     specs = rules.cache_specs(caches)
     rows = DTensor.from_local(logits, ex.mesh, ex.row_placements(),
                               run_check=False)

@@ -15,9 +15,12 @@ by :class:`~repro_torch.parallel.MeshRules` and its steps run by a
   resumes exactly, on this mesh or another, and from a checkpoint of
   either package;
 * **elastic resize / live migration** — :meth:`Trainer.resize` moves the
-  live state through the host, whole, onto another mesh or device (a
-  ``(2, 2)`` mesh to ``(4, 1)``, the card to the host and back) without a
-  restart;
+  live state through the host onto another mesh or device (a ``(2, 2)``
+  mesh to ``(4, 1)``, the card to the host and back) without a restart;
+* **one writer** — on a mesh, the host copy, the checkpoint and the
+  resize gather each tensor to one writing rank (the mesh's first), one
+  tensor at a time; every other rank holds only its own blocks, on the
+  device and on the host;
 * **failure injection** — ``failure_at`` raises :class:`SimulatedFailure`
   at that step, for the fault-tolerance tests;
 * **straggler monitoring** — per-step wall-time EMA; steps slower than
@@ -42,6 +45,7 @@ from ..models import Model, params_from_jax, params_to_jax
 from ..models import registry as R
 from ..optim import adamw_init
 from ..parallel import MeshExecutor, MeshRules, make_train_step
+from ..parallel.sharding import gather_to, scatter_from
 
 
 #: a step slower than this many times the wall-time EMA is a straggler
@@ -59,12 +63,6 @@ class TrainReport:
     straggler_events: int = 0
     checkpoints: List[int] = field(default_factory=list)
     preempted: bool = False
-
-
-def _whole(t: torch.Tensor) -> torch.Tensor:
-    """A tensor whole: a ``DTensor`` gathered (every rank of its mesh
-    together), any other as it is."""
-    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 class Trainer:
@@ -109,6 +107,9 @@ class Trainer:
         self.rules = MeshRules(self.cfg, self.pcfg, mesh)
         self.executor = MeshExecutor(self.rules) if self.rules.sharded \
             else None
+        #: the rank that holds the whole state on the host, and writes it
+        self.writer = int(mesh.mesh.min()) if self.executor is not None \
+            else None
         self.pspecs = self.rules.param_specs()
         self.ospecs = self.rules.opt_specs(self.pspecs)
         self.bspecs = self.rules.batch_specs(
@@ -137,12 +138,28 @@ class Trainer:
                                             device=self.device)
         self.step = 0
 
-    def _place(self, params, m, v, count) -> None:
+    def _place(self, params, m, v, count, src: Optional[int] = None
+               ) -> None:
         """Make the state from whole tensors by parameter name, on the
         bound device, or sharded on the bound mesh.  The dicts are emptied
-        as their tensors are placed, so each source can be freed at once."""
+        as their tensors are placed, so each source can be freed at once.
+        With ``src``, only global rank ``src`` holds the whole tensors (the
+        other ranks' dicts are ignored): it sends each rank its blocks, or
+        every rank the whole tensor where the bound mesh is one device."""
         pdt = getattr(torch, self.cfg.param_dtype)
         odt = getattr(torch, self.cfg.opt_state_dtype)
+        model = Model(self.cfg, device="meta")
+        if src is not None:
+            shapes = dict(model.named_parameters())
+            params, m, v = (self._from_rank(src, d, shapes, dt)
+                            for d, dt in ((params, pdt), (m, odt),
+                                          (v, odt)))
+            if self.executor is not None:
+                self.executor.adopt(model, params)
+                self.opt = {"m": m, "v": v,
+                            "count": count.to(self.device, torch.int32)}
+                self.model = model
+                return
 
         def on(tensors, dtype):
             # a view (a layer of a stacked leaf) becomes a tensor of its
@@ -152,7 +169,6 @@ class Trainer:
                 t = tensors.pop(n)
                 out[n] = t.to(self.device, dtype, copy=t._base is not None)
             return out
-        model = Model(self.cfg, device="meta")
         if self.executor is None:
             model.load_state_dict(on(params, pdt), assign=True)
             self.opt = {"m": on(m, odt), "v": on(v, odt)}
@@ -163,28 +179,69 @@ class Trainer:
         self.opt["count"] = count.to(self.device, torch.int32)
         self.model = model
 
+    def _from_rank(self, src: int, tensors, shapes, dtype) -> dict:
+        """Tensors by parameter name that global rank ``src`` holds whole:
+        ``DTensor``s placed by the rules (each rank receiving its blocks)
+        on a mesh, whole on every rank on a device."""
+        ex, me = self.executor, dist.get_rank()
+        out = {}
+        for n, shape in shapes.items():
+            t = tensors.pop(n) if me == src else None
+            if ex is not None:
+                out[n] = scatter_from(t, src, self.mesh, ex.specs[n],
+                                      shape.shape, dtype, self.device)
+                continue
+            whole = t.to(self.device, dtype).contiguous() if me == src \
+                else torch.empty(shape.shape, dtype=dtype,
+                                 device=self.device)
+            dist.broadcast(whole, src=src)
+            out[n] = whole
+        return out
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank holds the whole state on the host (one
+        device: always)."""
+        return self.writer is None or dist.get_rank() == self.writer
+
     def host_state(self) -> dict:
-        """The state whole on the host, topology-neutral: ``params``,
-        ``m`` and ``v`` by parameter name and ``count`` (on a mesh every
-        rank gathers every tensor)."""
+        """The state on the host, topology-neutral: ``params``, ``m`` and
+        ``v`` by parameter name and ``count``.  On a mesh the writing rank
+        holds each tensor whole (its blocks gathered there, one tensor at
+        a time) and every other rank only its own blocks."""
         def host(tensors):
-            return {n: _whole(t).detach().to("cpu")
-                    for n, t in tensors.items()}
+            out = {}
+            for n, t in tensors.items():
+                if isinstance(t, DTensor):
+                    whole = gather_to(t, self.writer)
+                    t = t.to_local() if whole is None else whole
+                out[n] = t.detach().to("cpu")
+            return out
         return {"params": host(dict(self.model.named_parameters())),
                 "m": host(self.opt["m"]), "v": host(self.opt["v"]),
-                "count": _whole(self.opt["count"]).to("cpu")}
+                "count": self.opt["count"].to("cpu")}
 
-    def state_tree(self, device=None) -> dict:
+    def state_tree(self, device=None) -> Optional[dict]:
         """The state in the JAX package's tree: ``params``, ``opt`` with
         ``m``, ``v`` (each in the parameters' layout) and ``count``; new
         tensors on ``device`` (the state's own when None), one stacked
-        leaf at a time (on a mesh every rank gathers every tensor)."""
-        def tree(tensors):
-            return params_to_jax({n: _whole(t) for n, t in tensors.items()},
-                                 self.cfg, device)
-        count = _whole(self.opt["count"])
-        return {"params": tree(dict(self.model.named_parameters())),
-                "opt": {"m": tree(self.opt["m"]), "v": tree(self.opt["v"]),
+        leaf at a time.  On a mesh, the writing rank's tree on the host
+        (:meth:`host_state`), None on the other ranks."""
+        if self.executor is not None:
+            host = self.host_state()
+            if not self.is_writer:
+                return None
+            tensors = {k: host[k] for k in ("params", "m", "v")}
+            count = host["count"]
+        else:
+            tensors = {"params": dict(self.model.named_parameters()),
+                       "m": self.opt["m"], "v": self.opt["v"]}
+            count = self.opt["count"]
+
+        def tree(k):
+            return params_to_jax(tensors[k], self.cfg, device)
+        return {"params": tree("params"),
+                "opt": {"m": tree("m"), "v": tree("v"),
                         "count": count.clone() if device is None else
                         count.to(device, copy=True)}}
 
@@ -206,13 +263,14 @@ class Trainer:
         return True
 
     def save_checkpoint(self) -> None:
-        """Checkpoint the state with its specs; on a mesh every rank
-        gathers and the first rank of the mesh writes, then all wait."""
+        """Checkpoint the state with its specs; on a mesh each tensor is
+        gathered to the writing rank (the mesh's first), which writes,
+        then all wait."""
         if self.ckpt is None:
             return
         tree = self.state_tree(torch.device("cpu"))
         ex = self.executor
-        if ex is None or dist.get_rank() == int(self.mesh.mesh.min()):
+        if self.is_writer:
             self.ckpt.save(self.step, tree,
                            specs={"params": self.pspecs,
                                   "opt": self.ospecs},
@@ -225,15 +283,18 @@ class Trainer:
     def resize(self, new_mesh) -> None:
         """Live-migrate the job onto another mesh or device (the cluster-
         scale analogue of the paper's cross-GPU kernel migration): the
-        state goes whole through the host (:meth:`host_state`), the old
-        one is dropped, and the rules, data and step are bound to
-        ``new_mesh`` before the state is placed there.  The step counter,
-        and with it the data's position, carries over."""
+        state goes through the host (:meth:`host_state`: whole on one
+        device, or on a mesh's writing rank, which then sends each rank
+        its blocks of the new placement), the old one is dropped, and the
+        rules, data and step are bound to ``new_mesh`` before the state
+        is placed there.  The step counter, and with it the data's
+        position, carries over."""
         host = self.host_state()
-        step = self.step
+        step, src = self.step, self.writer
         self.model = self.opt = None
         self._bind_mesh(new_mesh)
-        self._place(host["params"], host["m"], host["v"], host["count"])
+        self._place(host["params"], host["m"], host["v"], host["count"],
+                    src=src)
         self.step = step
 
     # -- the loop -----------------------------------------------------------

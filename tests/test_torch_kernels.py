@@ -9,6 +9,8 @@ interpret mode), each torch oracle against the JAX oracle, and each
 ``tests/test_kernels.py``.  The CUDA kernels themselves run on the card
 (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py`` phase 5).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -310,6 +312,8 @@ def _small_calls(device):
 
 _WRAPPERS = {"flash_attention": flash_attention_fwd, "moe_gmm": moe_gmm_fwd,
              "rglru_scan": rglru_scan_fwd, "mlstm_chunk": mlstm_chunk_fwd}
+_N_OPERANDS = {"flash_attention": 3, "moe_gmm": 3, "rglru_scan": 3,
+               "mlstm_chunk": 5}
 
 
 def test_prepare_takes_contiguous_copies_and_computes_f16_in_f32():
@@ -346,9 +350,26 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(name):
 
 
 @pytest.mark.parametrize("name", _cuda.KERNELS)
+def test_meta_tensors_take_the_oracle_and_launch_nothing(name):
+    """A dry run's trace: on ``meta`` the wrapper returns the oracle's
+    outputs (their shapes and types the plain version's) and launches
+    nothing."""
+    before = _WRAPPERS[name].launches
+    got = _small_calls("meta")[name]()
+    want = _small_calls("cpu")[name]()
+    got, want = ((o if isinstance(o, tuple) else (o,)) for o in (got, want))
+    assert [(o.device.type, o.shape, o.dtype) for o in got] == \
+        [("meta", w.shape, w.dtype) for w in want]
+    assert _WRAPPERS[name].launches == before
+
+
+@pytest.mark.parametrize("name", _cuda.KERNELS)
 def test_other_devices_are_refused(name):
-    with pytest.raises(ValueError, match="meta"):
-        _small_calls("meta")[name]()
+    """A device that is neither the card, the CPU nor ``meta`` (only the
+    operands' ``device`` is read before the refusal)."""
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="xpu"):
+        _WRAPPERS[name](*[other] * _N_OPERANDS[name])
 
 
 def test_kernel_library_hash_covers_source_and_flags(tmp_path, monkeypatch):

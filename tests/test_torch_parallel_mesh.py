@@ -33,7 +33,28 @@ held against the one-device port, at the reference's cross-mesh bar
 (e) a checkpoint the JAX package wrote with ``(2, 2)`` specs restores on
     a ``(2, 2)`` mesh placed by them, with the same values;
 (f) ``launch/train.py --smoke`` in a world of four ranks trains on their
-    ``(4, 1)`` mesh, at the bar of the one-device trainer.
+    ``(4, 1)`` mesh, at the bar of the one-device trainer;
+(g) the compute split over ``model`` (heads, FFN, experts, RG-LRU
+    channels, vocab, and the sequence under ``seq_shard``): (a)'s meshes
+    with ``model`` > 1 already run it for llama (``(1, 4)`` takes the
+    heads' ``_fit`` fallback) and granite (experts over ``model``: EP);
+    recurrentgemma (RG-LRU channels, SWA, kv heads gathered) and whisper
+    (encoder, cross-attention) take steps on ``(2, 2)`` and ``(1, 4)``
+    (recurrentgemma also under SP) held to the one-device steps at
+    ``SPLIT_RTOL``; two planted faults, a row-parallel product whose
+    partial sums are never added and an SP reduce-scatter replaced by a
+    slice, fall outside it;
+(h) greedy decoding on split meshes (llama, granite, recurrentgemma,
+    whisper; caches split by heads, by slots and whole): each rank's
+    greedy tokens equal the one-device ones, the f32 logits are within
+    ``SPLIT_LOGIT_ATOL``, each rank's cache bytes between steps equal its
+    split of the whole, and one decode step's collective bytes (counted by
+    ``repro_torch.launch.hlo_analysis``) are the same at two cache
+    lengths: no cache moves per token.
+The host copies, checkpoints and resizes of (a) and (b) have one writer:
+rank 0 holds the whole state on the host, every other rank only its own
+blocks; the checkpoint written on ``(2, 2)`` reads back bit-equal in both
+packages.
 """
 import json
 import sys
@@ -62,8 +83,17 @@ RTOL, ATOL = 5e-4, 5e-5
 #: each leaf's largest magnitude: 10x the largest f32 rounding measured
 #: between the mesh runs and the one-device run (2.1e-6, a norm's scale)
 STATE_RTOL = 2e-5
+#: (g)'s bars on the split's train steps, relative as ``STATE_RTOL``: 10x
+#: the largest difference measured from the one-device run (gradient
+#: norms 1.0e-7; m 3.0e-6 and v 2.7e-6; the parameters 2.9e-4, on an
+#: RMSNorm scale that starts at zero, whose AdamW steps divide tiny
+#: gradients by their own size)
+SPLIT_RTOL = {"grad_norm": 1e-6, "params": 3e-3, "m": 3e-5, "v": 3e-5}
+#: (h)'s bar on the f32 logits: 10x the largest difference measured
+#: (3.0e-6, on logits of magnitude 3-5)
+SPLIT_LOGIT_ATOL = 3e-5
 #: seconds the four ranks may take, spawn included
-JOIN_TIMEOUT = 240
+JOIN_TIMEOUT = 300
 
 
 def _close(got, want) -> bool:
@@ -79,6 +109,26 @@ def _state_bad(c) -> list:
     assert len(c["norms"]) == len(c["want_norms"]) > 0
     return bad + [(k, *e) for k, e in c["state_err"].items()
                   if e[0] > STATE_RTOL]
+
+
+def _assert_one_writer(r: int, c) -> None:
+    """Rank 0 writes: its host copy is the whole state; every other
+    rank's host copy is its own blocks' bytes."""
+    assert c["writer"] == (r == 0), (r, c["writer"])
+    want = c["whole_bytes"] if r == 0 else c["shard_bytes"]
+    assert c["host_bytes"] == want, (r, c)
+    if r:
+        assert c["shard_bytes"] < c["whole_bytes"]
+
+
+def _split_bad(c) -> list:
+    """What of split case ``c`` is outside ``SPLIT_RTOL``."""
+    bad = [("grad_norm", i, g, w) for i, (g, w) in
+           enumerate(zip(c["norms"], c["want_norms"]))
+           if abs(g - w) > SPLIT_RTOL["grad_norm"] * abs(w)]
+    assert len(c["norms"]) == len(c["want_norms"]) > 0
+    return bad + [(k, *e) for k, e in c["state_err"].items()
+                  if e[0] > SPLIT_RTOL[k]]
 
 
 def _write_jax_checkpoint(path: Path) -> None:
@@ -97,8 +147,8 @@ def _write_jax_checkpoint(path: Path) -> None:
 
 
 @pytest.fixture(scope="module")
-def mesh_results(tmp_path_factory):
-    """Run the four ranks once; their reports, by rank."""
+def mesh_dir(tmp_path_factory):
+    """Run the four ranks once; their directory."""
     tmp = tmp_path_factory.mktemp("mesh")
     _write_jax_checkpoint(tmp / "jax_ckpt")
     ctx = mp.start_processes(ranks.main, args=(str(tmp / "store"), str(tmp)),
@@ -115,7 +165,13 @@ def mesh_results(tmp_path_factory):
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
-    return [json.loads((tmp / f"rank{r}.json").read_text())
+    return tmp
+
+
+@pytest.fixture(scope="module")
+def mesh_results(mesh_dir):
+    """The four ranks' reports, by rank."""
+    return [json.loads((mesh_dir / f"rank{r}.json").read_text())
             for r in range(ranks.WORLD)]
 
 
@@ -132,6 +188,7 @@ def test_mesh_steps_match_one_device(mesh_results, i):
         assert not c["bad_shape"], (r, c["bad_shape"])
         assert not c["bad_bits"], (r, c["bad_bits"])
         assert c["replicated"] > 0
+        _assert_one_writer(r, c)
         if c["arch"] == "llama3.2-3b":
             assert c["n_routings"] == 0
         else:
@@ -155,6 +212,7 @@ def test_elastic_restore_and_resize(mesh_results):
         assert _close(e["resized"], e["one_device"]), (r, e)
         assert not _state_bad(e), (r, _state_bad(e))
         assert not e["bad_shape"] and not e["bad_bits"], (r, e)
+        _assert_one_writer(r, e)
 
 
 @pytest.mark.parametrize("i", range(2), ids=["granite", "whisper"])
@@ -185,3 +243,63 @@ def test_smoke_launch_over_every_rank(mesh_results):
     for res in mesh_results:
         c = res["launcher"]
         assert len(c["losses"]) == 1 and _close(c["losses"], c["want"]), c
+
+
+SPLIT_STEP_IDS = [f"{a.split('-')[0]}-{'x'.join(map(str, m))}"
+                  f"{''.join(f'-{k}' for k in kw)}"
+                  for a, m, kw in ranks.SPLIT_STEPS]
+
+
+@pytest.mark.parametrize("i", range(len(SPLIT_STEP_IDS)), ids=SPLIT_STEP_IDS)
+def test_split_steps_match_one_device(mesh_results, i):
+    for r, res in enumerate(mesh_results):
+        c = res["split_steps"][i]
+        assert _close(c["losses"], c["want"]), (r, c)
+        assert not _split_bad(c), (r, _split_bad(c))
+        assert not c["bad_shape"] and not c["bad_bits"], (r, c)
+        _assert_one_writer(r, c)
+
+
+@pytest.mark.parametrize("i", range(len(ranks.SPLIT_FAULTS)),
+                         ids=[f[0] for f in ranks.SPLIT_FAULTS])
+def test_split_planted_faults_fall_outside_the_bars(mesh_results, i):
+    for r, res in enumerate(mesh_results):
+        c = res["split_faults"][i]
+        assert not _close(c["losses"], c["want"]), (r, c)
+        assert {"params", "m", "v"} <= {b[0] for b in _split_bad(c)}, (r, c)
+
+
+SPLIT_SERVE_IDS = [f"{a.split('-')[0]}-{'x'.join(map(str, m))}-{kv}"
+                   for a, m, kv in ranks.SPLIT_SERVING]
+
+
+@pytest.mark.parametrize("i", range(len(SPLIT_SERVE_IDS)),
+                         ids=SPLIT_SERVE_IDS)
+def test_split_decode_matches_one_device_and_moves_no_cache(mesh_results, i):
+    for r, res in enumerate(mesh_results):
+        c = res["split_serving"][i]
+        assert c["same_tokens"], (r, c)
+        assert len(c["errs"]) == ranks.DECODE_STEPS + 1
+        assert max(c["errs"]) <= SPLIT_LOGIT_ATOL, (r, c)
+        assert all(local == split for local, split in c["cache_bytes"]), \
+            (r, c["cache_bytes"])
+        n = len(ranks.CACHE_LENS)
+        assert len(c["coll"]) == n and len(set(c["coll"])) == 1, (r, c)
+
+
+def test_mesh_checkpoint_reads_back_in_both_packages(mesh_dir):
+    """(b)'s checkpoint, written on ``(2, 2)`` by one rank from the
+    blocks of all four: the JAX package's restore and the port's read the
+    same bits (and the ranks restored it into the state they saved)."""
+    from repro.checkpoint import restore as jax_restore
+    from repro_torch.checkpoint import restore as port_restore
+    from repro_torch.checkpoint.topology import _flatten_with_paths
+    step = 2
+    mine, extra2 = port_restore(mesh_dir / "ckpt", step)
+    mesh = jax.make_mesh((1, 1), ("data", "model"))
+    got, extra = jax_restore(mesh_dir / "ckpt", step, mine, mesh=mesh)
+    assert extra == extra2 == {"next_step": step}
+    flat, want = _flatten_with_paths(got), _flatten_with_paths(mine)
+    assert sorted(flat) == sorted(want) and len(flat) > 0
+    for key, leaf in flat.items():
+        assert np.array_equal(np.asarray(leaf), want[key].numpy()), key

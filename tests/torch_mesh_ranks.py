@@ -28,7 +28,10 @@ from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import Model, layers
 from repro_torch.parallel import (MeshExecutor, MeshRules, make_prefill_step,
                                   make_serve_step, pipeline_apply)
-from repro_torch.parallel.sharding import mesh_axes
+from repro_torch.launch import dryrun
+from repro_torch.launch.hlo_analysis import OpCounter
+from repro_torch.parallel.sharding import local_chunk, mesh_axes
+from repro_torch.parallel.split import ModelSplit
 from repro_torch.runtime import Trainer
 
 WORLD = 4
@@ -43,6 +46,26 @@ STEPS = 2
 PLANTED = ("llama3.2-3b", (2, 2))
 #: the reference test's GPipe sizes (tests/test_pipeline.py)
 PIPE_S, PIPE_M, PIPE_D = 4, 6, 16
+#: (g): the split's train steps beyond (a)'s: the RG-LRU's channels and
+#: SWA, and whisper's encoder and cross-attention
+SPLIT_STEPS = (("recurrentgemma-2b", (2, 2), {}),
+               ("recurrentgemma-2b", (1, 4), {}),
+               ("recurrentgemma-2b", (2, 2), {"seq_shard": True}),
+               ("whisper-large-v3", (2, 2), {}),
+               ("whisper-large-v3", (1, 4), {}))
+#: (g)'s planted faults on llama3.2-3b, (2, 2): a row-parallel product's
+#: partial sums never added, and under SP the reduce-scatter replaced by a
+#: slice of this rank's own partial sums
+SPLIT_FAULTS = (("no_sum", {}), ("sp_slice", {"seq_shard": True}))
+#: (h): greedy decoding on a split mesh (arch, mesh, kv_shard); the
+#: caches' lengths, which the split divides (slots split by "seq")
+SPLIT_SERVING = (("llama3.2-3b", (1, 4), "heads"),
+                 ("llama3.2-3b", (2, 2), "seq"),
+                 ("granite-moe-3b-a800m", (1, 4), "seq"),
+                 ("recurrentgemma-2b", (2, 2), "seq"),
+                 ("whisper-large-v3", (1, 4), "heads"),
+                 ("whisper-large-v3", (2, 2), "seq"))
+PROMPT, DECODE_STEPS, CACHE_LENS = 16, 3, (20, 40)
 
 
 def _pcfg(**kw) -> ParallelCfg:
@@ -91,8 +114,16 @@ def _state_report(tr: Trainer) -> dict:
                 by_key.setdefault(k, set()).add(h)
             if any(len(h) > 1 for h in by_key.values()):
                 bad_bits.append(name)
+    host = tr.host_state()
+    host_bytes = sum(t.numel() * t.element_size()
+                     for k in ("params", "m", "v") for t in host[k].values())
+    shard_bytes = sum(t.to_local().numel() * t.element_size()
+                      for t in tensors.values())
+    whole_bytes = sum(t.numel() * t.element_size() for t in tensors.values())
     return {"bad_shape": bad_shape, "bad_bits": bad_bits,
-            "replicated": n_rep, "tensors": len(tensors)}
+            "replicated": n_rep, "tensors": len(tensors),
+            "writer": tr.is_writer, "host_bytes": host_bytes,
+            "shard_bytes": shard_bytes, "whole_bytes": whole_bytes}
 
 
 class _Experts:
@@ -128,14 +159,19 @@ def _run(tr: Trainer, steps: int):
     return losses, norms
 
 
-def _state_errors(got: dict, want: dict) -> dict:
-    """For the parameters and each moment (whole, by parameter name): the
+def _state_errors(tr: Trainer, got: dict, want: dict) -> dict:
+    """For the parameters and each moment (by parameter name; ``got`` is
+    ``tr``'s host state: whole on its writing rank, each other rank's
+    blocks elsewhere, held against the same blocks of ``want``): the
     largest over the leaves of max|got - want| / max|want|, and its
     leaf."""
+    params = dict(tr.model.named_parameters())
     out = {}
     for k in ("params", "m", "v"):
         err, leaf = 0.0, None
         for n, w in want[k].items():
+            if not tr.is_writer:
+                w = local_chunk(w, tr.mesh, params[n].placements)
             e = float((got[k][n] - w).abs().max()
                       / w.abs().max().clamp(min=1e-30))
             if e > err or leaf is None:
@@ -163,18 +199,21 @@ def _compared(tr: Trainer, steps: int, want: dict) -> dict:
         losses, norms = _run(tr, steps)
     return dict(losses=losses, want=want["losses"], norms=norms,
                 want_norms=want["norms"],
-                state_err=_state_errors(tr.host_state(), want["state"]),
+                state_err=_state_errors(tr, tr.host_state(),
+                                        want["state"]),
                 same_experts=len(ex.picks) == len(want["picks"]) and all(
                     torch.equal(a, b) for a, b in zip(ex.picks,
                                                       want["picks"])),
                 n_routings=len(ex.picks))
 
 
-def _reduce_own_rows(self, g, pl):
-    """The planted fault: this rank's partial gradient cut to its block,
-    never summed over the ranks."""
+def _reduce_own_rows(self, g, pl, keep=None):
+    """The planted fault: this rank's partial gradient (whole, or its
+    block of mesh dim ``keep``'s split) cut to its block, never summed
+    over the ranks."""
     return DTensor.from_local(g.contiguous(), self.mesh,
-                              [Replicate()] * self.mesh.ndim,
+                              [pl[i] if i == keep else Replicate()
+                               for i in range(self.mesh.ndim)],
                               run_check=False
                               ).redistribute(self.mesh, list(pl)).to_local()
 
@@ -208,6 +247,92 @@ def check_steps(out: dict) -> None:
         MeshExecutor.reduce = reduce
 
 
+def check_split_steps(out: dict) -> None:
+    """(g) the split's steps against the one-device step (recurrentgemma
+    and whisper), and the planted faults on llama."""
+    one = {}
+    for arch, shape, kw in SPLIT_STEPS:
+        cfg = configs.get_smoke_config(arch)
+        if arch not in one:
+            one[arch] = _one_device(cfg, STEPS)
+        tr = Trainer(cfg, SHAPE, make_test_mesh(shape), pcfg=_pcfg(**kw),
+                     seed=1)
+        tr.init_state()
+        out["split_steps"].append(dict(arch=arch, mesh=list(shape), kw=kw,
+                                       **_compared(tr, STEPS, one[arch]),
+                                       **_state_report(tr)))
+    cfg = configs.get_smoke_config("llama3.2-3b")
+    want = _one_device(cfg, STEPS)
+    sum_seq = ModelSplit.sum_seq
+    planted = {"no_sum": lambda self, t: t,
+               "sp_slice": lambda self, t: self.own(t, 1) if self.seq
+               else sum_seq(self, t)}
+    for name, kw in SPLIT_FAULTS:
+        tr = Trainer(cfg, SHAPE, make_test_mesh((2, 2)), pcfg=_pcfg(**kw),
+                     seed=1)
+        tr.init_state()
+        ModelSplit.sum_seq = planted[name]
+        try:
+            out["split_faults"].append(dict(name=name,
+                                            **_compared(tr, STEPS, want)))
+        finally:
+            ModelSplit.sum_seq = sum_seq
+
+
+def check_split_serving(out: dict) -> None:
+    """(h) prefill and greedy decode steps on a split mesh against one
+    device: the greedy tokens (each rank's rows), the f32 logits, each
+    rank's cache bytes between steps against its split of the whole, and
+    one decode step's collective bytes at two cache lengths."""
+    for arch, shape, kv in SPLIT_SERVING:
+        cfg = configs.get_smoke_config(arch)
+        rules = MeshRules(cfg, _pcfg(kv_shard=kv), make_test_mesh(shape))
+        model = Model(cfg, generator=torch.Generator().manual_seed(3),
+                      device="cpu")
+        batch = serve.make_batch(cfg, 4, PROMPT, 0, torch.device("cpu"), 20)
+        # one device: greedy tokens, each step's logits
+        logits, caches = model.prefill(batch, cache_len=CACHE_LENS[0])
+        want, toks = [logits], [logits[:, -1].argmax(-1)[:, None]]
+        for i in range(DECODE_STEPS):
+            logits, caches = model.decode_step(toks[-1], caches, PROMPT + i)
+            want.append(logits)
+            toks.append(logits[:, -1].argmax(-1)[:, None])
+        ex = MeshExecutor(rules)
+        ex.shard_model(model)
+        case = dict(arch=arch, mesh=list(shape), kv=kv, errs=[], scale=[],
+                    same_tokens=True, cache_bytes=[], coll=[])
+        step = make_serve_step(cfg, rules)
+        for n_cache in CACHE_LENS:
+            logits, mc = make_prefill_step(cfg, rules, n_cache)(model, batch)
+            got = [logits]
+            for i in range(DECODE_STEPS):
+                specs = rules.cache_specs([{n: torch.empty(
+                    t.shape, dtype=t.dtype, device="meta")
+                    for n, t in c.items()} for c in mc])
+                flat = {(j, n): t for j, c in enumerate(mc)
+                        for n, t in c.items()}
+                case["cache_bytes"].append([
+                    dryrun.local_bytes(flat),
+                    dryrun.analytic_bytes_per_device(
+                        flat, {(j, n): s for j, c in enumerate(specs)
+                               for n, s in c.items()},
+                        rules.axis_size)])
+                counter = OpCounter(WORLD)
+                with counter:
+                    logits, mc = step(model, toks[i], mc, PROMPT + i)
+                got.append(logits)
+                if i == 0:
+                    case["coll"].append(counter.coll.get("total", 0.0))
+            if n_cache != CACHE_LENS[0]:
+                continue
+            for g, w, t in zip(got, want, toks):
+                case["errs"].append(float((g.full_tensor() - w).abs().max()))
+                case["scale"].append(float(w.abs().max()))
+                case["same_tokens"] &= torch.equal(
+                    ex.greedy(g), ex.own_rows(t))
+        out["split_serving"].append(case)
+
+
 def check_elastic(out: dict, ckpt: Path) -> None:
     """(b) 2 steps on (2, 2), a checkpoint, a restore on (4, 1), 2 more
     steps, against 4 steps on (2, 2); then resize onto (1, 4) and one
@@ -236,7 +361,7 @@ def check_elastic(out: dict, ckpt: Path) -> None:
                           same_state=same_state, placed=placed,
                           resized=after, one_device=one["losses"][4:],
                           norms=norms, want_norms=one["norms"][4:],
-                          state_err=_state_errors(tb.host_state(),
+                          state_err=_state_errors(tb, tb.host_state(),
                                                   one["state"]),
                           step=tb.step, **_state_report(tb))
 
@@ -339,10 +464,13 @@ def main(rank: int, store_path: str, out_dir: str) -> None:
     dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
                             rank=rank, world_size=WORLD,
                             timeout=datetime.timedelta(seconds=120))
-    out = {"steps": [], "serving": [], "pipeline": []}
+    out = {"steps": [], "serving": [], "pipeline": [], "split_steps": [],
+           "split_faults": [], "split_serving": []}
     out_dir = Path(out_dir)
     try:
         check_steps(out)
+        check_split_steps(out)
+        check_split_serving(out)
         check_elastic(out, out_dir / "ckpt")
         check_serving(out)
         check_pipeline(out)
