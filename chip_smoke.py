@@ -239,9 +239,43 @@ card) and against the NumPy oracles:
    grouped matmul run their plain math (the JAX model's, which the
    reference's dry run counts); on the card, their kernels.
 
+13. the split over a mesh, on the card's one device: each rank's share
+   of a split layer is a function of the rank's index and the split's
+   size (``repro_torch.models.layers``' share functions, which the mesh
+   path calls with its own index); ``repro_torch.parallel.shares`` calls
+   them for every index in turn and puts the shares together as the
+   collectives do.  (a) granite-moe-3b-a800m's MoE layer at full width,
+   bf16, at phase 7's prefill batch (4 x 1024 tokens, capacity 1024): the
+   three expert products on the whole capacity buffer against the same
+   on 2, 4 and 16 capacity slices with offset counts, each slice on the
+   wgmma kernel, concatenated bit-equal; the same on the f32 kernel; the
+   layer from the shares of ``(data, model)`` meshes (2, 2) and (4, 4)
+   (EP: granite's 40 experts divide them, the capacity stays whole) and
+   (2, 16) and (4, 16) (expert-TP: the capacity in 2 and 4 slices)
+   against the one-device layer at phase 7's bf16 bar, and (4, 16) in f32
+   at ``F32_MODEL_TOL``; (b) xlstm-125m's production profile at full
+   width, f32, phase 8's batch (8 x 2048): ``mlstm_chunk`` on each head's
+   384 value columns in 1, 2 and 4 blocks, each with its own column of
+   ones, concatenated, against the whole launch (bit-equal, or within
+   ``MLSTM_F32_TOL``, the difference printed); the chunked mLSTM and the
+   sLSTM (plain per-step loop: no kernel) on 2, 4 and 16 ``model`` ranks
+   (heads; on 16, a head's value columns in 4 blocks and the sLSTM's 4
+   heads each repeated) against one device within ``MLSTM_F32_TOL`` (the
+   sLSTM's largest error over its allowance printed, and every error
+   beside one device's f32 loop's error against an f64 run of it); each
+   kernel also against its plain version; (c) phase 12's peak within
+   ``PEAK_TOL`` of its prediction (phase 11 (a) and phase 12's state
+   bytes are checked in those phases).  The mesh checks run the layers'
+   own mesh code (``moe_ffn_global``, the mixers) on every rank of a
+   simulated mesh, whose collectives exchange tensors in memory
+   (``repro_torch.parallel.shares``).  Each check prints its kernels'
+   launches and their device time (CUDA events around each launch;
+   ``split_path`` in the kernels line).
+
 Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6,
 phase 8 after phase 7, phase 9 after phase 8, phase 10 after phase 9,
-phase 11 after phase 10, phase 12 after phase 11.
+phase 11 after phase 10, phase 12 after phase 11, phase 13 after phase
+12.
 Phase 4 also times
 the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
@@ -268,7 +302,8 @@ before each train step of phase 10 and read after it, and for one step
 also at the end of its forward (``train_path``: the launches of one
 step), and reset before each of phase 11's prefill, decode and train
 steps and read after it (``mesh_path``), and reset before phase 12's
-trace and its measured step and read after each (``dryrun_path``).  Any
+trace and its measured step and read after each (``dryrun_path``), and
+reset before each check of phase 13 and read after it (``split_path``).  Any
 mismatch or launch error ends the run with a non-zero code.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -483,6 +518,23 @@ MIGRATE_F32_LAYERS, MIGRATE_F32_B, MIGRATE_F32_S = 2, 1, 128
 #: batch, remat, one microbatch); the card takes DRYRUN_STEPS steps of it
 #: and the last is measured
 DRYRUN_STEPS = 2
+#: phase 13: the split's shares on the one card. (a) granite's MoE layer
+#: at phase 7's prefill batch: the capacity cut into SPLIT_SLICES slices
+#: at the kernel, and the layer as the ranks of SPLIT_MOE_MESHES (data,
+#: model) compute it (granite's 40 experts: EP on a model of 2 and 4, the
+#: capacity whole; expert-TP on 16, the capacity over data); (b)
+#: xlstm-125m's mixers at phase 8's batch: mlstm_chunk on each head's
+#: value columns in SPLIT_VALUE_BLOCKS blocks, and the mLSTM and sLSTM as
+#: SPLIT_MIXER_RANKS model ranks compute them (heads; on 16, each head's
+#: value columns in 4 blocks and the sLSTM's head repeated), held to
+#: MLSTM_F32_TOL, phase 8 (b)'s bar on mlstm_chunk in f32; (c) phase 12's
+#: peak within PEAK_TOL of its prediction
+SPLIT_SLICES = (2, 4, 16)
+SPLIT_MOE_MESHES = ((2, 2), (4, 4), (2, 16), (4, 16))
+SPLIT_VALUE_BLOCKS = (1, 2, 4)
+SPLIT_MIXER_RANKS = (2, 4, 16)
+MLSTM_F32_TOL = 2e-3
+PEAK_TOL = 0.01
 
 
 class SmokeFailure(Exception):
@@ -3496,7 +3548,8 @@ def phase11(dev, smi: str, serve_tokens, first_step: dict) -> dict:
 
 def phase12(dev, smi: str) -> dict:
     """Phase 12: the production dry run's one-card cell against the card.
-    Returns the kernels line's ``dryrun_path`` entries, by kernel name."""
+    Returns the kernels line's ``dryrun_path`` entries, by kernel name, and
+    the measured peak over the predicted one."""
     import torch
     from repro_torch import configs
     from repro_torch.configs.base import ParallelCfg, ShapeCfg
@@ -3570,7 +3623,335 @@ def phase12(dev, smi: str) -> dict:
           f"launches {launches}; on {smi}")
     del tr
     torch.cuda.empty_cache()
-    return launches
+    return launches, peak / cell["peak_bytes_per_device"]
+
+
+#: the device's spin before each timed launch (about 0.1 ms at the H100's
+#: clock): the host records the start event and launches while the device
+#: waits, so the two events bracket the kernel alone
+SPIN_CYCLES = 200_000
+
+
+def kernel_events_ms(go, name: str, reps: int = 3) -> float:
+    """Device time (ms) of kernel ``name``'s launches in one warm call of
+    ``go()``: CUDA events recorded on the stream right before and after
+    each launch, each launch queued behind a spin of the device
+    (``SPIN_CYCLES``), summed; the median of ``reps`` calls."""
+    import torch
+    from repro_torch.kernels import _cuda
+    go()
+    torch.cuda.synchronize()
+    real, events, totals = _cuda._FNS[name], [], []
+
+    def timed(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        err = real(*args)
+        b.record()
+        events.append((a, b))
+        return err
+    _cuda._FNS[name] = timed
+    try:
+        for _ in range(reps):
+            events.clear()
+            go()
+            torch.cuda.synchronize()
+            totals.append(sum(a.elapsed_time(b) for a, b in events))
+    finally:
+        _cuda._FNS[name] = real
+    return statistics.median(totals)
+
+
+def _split_times(go, kernel: str) -> dict:
+    """One check of phase 13: its time by CUDA events (median of 3 warm
+    calls) and the device time of its launches of ``kernel``
+    (:func:`kernel_events_ms`)."""
+    return {"ms": time_ms(go, 3), "device_ms": kernel_events_ms(go, kernel)}
+
+
+def _ms_text(t: dict) -> str:
+    return f"{t['ms']:.4f} ms by events, kernels {t['device_ms']:.4f} ms"
+
+
+def _split_moe(dev, smi: str, counters) -> dict:
+    """Phase 13 (a): granite's MoE layer split over capacity slices and
+    mesh ranks.  Returns the kernels line's ``split_path`` entries."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_fwd, moe_gmm_plain
+    from repro_torch.models import layers
+    from repro_torch.parallel import shares
+
+    cfg = configs.get_config(SERVE_ARCH)
+    E, K, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = layers.init_moe(cfg, torch.bfloat16, dev, gen)
+    x = torch.randn((SERVE_B, SERVE_S, D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    xf = x.reshape(-1, D)
+    C = layers.global_capacity(xf.shape[0], cfg)
+    r = layers._route((xf @ p["router"]).float(), K, E, C)
+    out = {"moe_gmm_sm90": {"slices": {}, "meshes": {}},
+           "moe_gmm": {"slices": {}, "meshes": {}}}
+    for dt, name, tol in ((torch.bfloat16, "moe_gmm_sm90", 5e-2),
+                          (torch.float32, "moe_gmm", 1e-4)):
+        pw = {k: v.to(dt) for k, v in p.items()}
+        buf, counts = layers._dispatch(xf.to(dt), r, K, 0, E, 0, C)
+        check(_close(moe_gmm_fwd(buf, pw["wg"], counts),
+                     moe_gmm_plain(buf, pw["wg"], counts), tol),
+              f"phase 13 (a): {name} [{E}, {C}, {D}] != plain")
+        reset_launches(counters)
+        whole = layers._expert_products(buf, pw, cfg, counts)
+        check(read_launches(counters)[name] == 3,
+              f"phase 13 (a): the whole buffer missed {name}")
+        for n in SPLIT_SLICES:
+            Cl = C // n
+            cut = [layers._dispatch(xf.to(dt), r, K, 0, E, c * Cl, Cl)
+                   for c in range(n)]
+            check(torch.equal(torch.cat([b for b, _ in cut], 1), buf),
+                  f"phase 13 (a): {n} capacity slices != the buffer")
+
+            def go():
+                return [layers._expert_products(b, pw, cfg, cn)
+                        for b, cn in cut]
+            reset_launches(counters)
+            got = torch.cat(go(), 1)
+            launches = read_launches(counters)
+            check(launches[name] == 3 * n and sum(launches.values()) == 3 * n,
+                  f"phase 13 (a): {n} slices: expected {3 * n} {name} "
+                  f"launches, got {launches}")
+            check(torch.equal(got, whole),
+                  f"phase 13 (a): {n} capacity slices of {name} are not "
+                  f"bit-equal to the whole buffer's (max abs err "
+                  f"{_err(got, whole):.4g})")
+            out[name]["slices"][str(n)] = dict(
+                _split_times(go, name), launches=launches[name],
+                rows_each=Cl, bit_equal=True)
+        whole_t = _split_times(
+            lambda: layers._expert_products(buf, pw, cfg, counts), name)
+        print(f"phase 13 (a): {name} on granite's capacity [{E}, {C}, {D}] "
+              f"in {'/'.join(map(str, SPLIT_SLICES))} slices with offset "
+              f"counts, the three expert products concatenated bit-equal "
+              f"to the whole buffer's; whole: {_ms_text(whole_t)}; "
+              + "; ".join(f"{n} slices: {_ms_text(t)}" for n, t in
+                          out[name]["slices"].items()) + f" on {smi}")
+        out[name]["whole"] = whole_t
+
+    want = layers.moe_ffn_global(x, p, cfg)
+    want32 = layers.moe_ffn_global(x.float(), {k: v.float() for k, v in
+                                               p.items()}, cfg)
+    for (nd, nm) in SPLIT_MOE_MESHES:
+        rules = shares.rules_for(cfg, nd, nm)
+        for dt, name, tol, ref in ((torch.bfloat16, "moe_gmm_sm90", 5e-2,
+                                    want),
+                                   (torch.float32, "moe_gmm", F32_MODEL_TOL,
+                                    want32)):
+            if dt == torch.float32 and (nd, nm) != SPLIT_MOE_MESHES[-1]:
+                continue
+            pw = {k: v.to(dt) for k, v in p.items()}
+
+            def go():
+                return shares.moe_global(x.to(dt), pw, cfg, rules)
+            reset_launches(counters)
+            got, info = go()
+            launches = read_launches(counters)
+            n_want = 3 * nd * nm     # every rank's three products
+            check(launches[name] == n_want,
+                  f"phase 13 (a): {nd}x{nm}: expected {n_want} {name} "
+                  f"launches, got {launches}")
+            check(_close(got, ref, tol),
+                  f"phase 13 (a): the MoE layer on the ranks of a "
+                  f"{nd}x{nm} mesh differs from one device's by "
+                  f"{_err(got, ref):.4g}, past {_tol_text(tol)}")
+            t = out[name]["meshes"][f"{nd}x{nm}"] = dict(
+                info, **_split_times(go, name), launches=launches[name],
+                max_abs_err=_err(got, ref))
+            print(f"phase 13 (a): granite's MoE layer {tuple(x.shape)} "
+                  f"{str(dt)[6:]} run by moe_ffn_global on every rank of a "
+                  f"simulated ({nd}, {nm}) mesh "
+                  f"({'EP' if info['ep'] else 'expert-TP'}, the capacity in "
+                  f"{info['n_capacity']} slices): within {_tol_text(tol)} "
+                  f"of one device (max abs err {_err(got, ref):.4g}), "
+                  f"{launches[name]} {name} launches, all ranks "
+                  f"{_ms_text(t)} on {smi}")
+    return out
+
+
+def _split_xlstm(dev, smi: str, counters) -> dict:
+    """Phase 13 (b): xlstm-125m's mLSTM and sLSTM split by heads and value
+    columns.  Returns the kernels line's ``split_path`` entry of
+    ``mlstm_chunk``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import MLSTM, SLSTM
+    from repro_torch.kernels.mlstm_chunk.kernel import (mlstm_chunk_fwd,
+                                                        mlstm_chunk_plain)
+    from repro_torch.models import layers
+    from repro_torch.parallel import shares
+
+    cfg = configs.get_optimized_config("xlstm-125m")
+    _, _, B, S, _ = P8_MODELS[1]
+    D, H = cfg.d_model, cfg.n_heads
+    hd, bt = 2 * D // H, cfg.mlstm_chunk
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pm = layers.init_mlstm(cfg, torch.float32, dev, gen)
+    ps = layers.init_slstm(cfg, torch.float32, dev, gen)
+    x = torch.randn((B, S, D), generator=gen, device=dev)
+    out = {"value_blocks": {}, "ranks": {}}
+
+    # -- mlstm_chunk on each head's value columns ---------------------------
+    q, k, v, log_i, log_f = layers._mlstm_inputs(x, pm, cfg)
+
+    def heads(t):
+        t = t.float().transpose(1, 2)
+        return t.reshape(B * H, S, *t.shape[3:]).contiguous()
+    q, k, v = heads(q), heads(k), heads(v)
+    lf, gi = heads(log_f)[..., None], torch.exp(heads(log_i))[..., None]
+
+    def with_ones(vb):
+        w = layers._ones_width(vb.shape[-1])
+        return torch.cat([vb, torch.ones_like(vb[..., :1]), torch.zeros(
+            (*vb.shape[:-1], w - vb.shape[-1] - 1), device=dev)], -1)
+    v1 = with_ones(v)
+    y_w, c_w = mlstm_chunk_fwd(q, k, v1, lf, gi, bt=bt)
+    py, pc = mlstm_chunk_plain(q, k, v1, lf, gi, bt=bt)
+    check(_close(y_w, py, MLSTM_F32_TOL) and _close(c_w, pc, MLSTM_F32_TOL),
+          "phase 13 (b): mlstm_chunk [32, 2048, 388] != plain")
+    out["whole"] = _split_times(
+        lambda: mlstm_chunk_fwd(q, k, v1, lf, gi, bt=bt), "mlstm_chunk")
+    for g in SPLIT_VALUE_BLOCKS:
+        vb = hd // g
+        ins = [with_ones(v[..., b * vb:(b + 1) * vb]) for b in range(g)]
+
+        def go():
+            return [mlstm_chunk_fwd(q, k, vi, lf, gi, bt=bt) for vi in ins]
+        reset_launches(counters)
+        parts = go()
+        launches = read_launches(counters)["mlstm_chunk"]
+        check(launches == g, f"phase 13 (b): {g} value blocks: {launches} "
+                             "mlstm_chunk launches")
+        y = torch.cat([yb[..., :vb] for yb, _ in parts], -1)
+        c = torch.cat([cb[..., :vb] for _, cb in parts], -1)
+        # each block's column of ones: the head's normalizer q·n and n
+        qn = max(_err(yb[..., vb], y_w[..., hd]) for yb, _ in parts)
+        nn = max(_err(cb[..., vb], c_w[..., hd]) for _, cb in parts)
+        err = max(_err(y, y_w[..., :hd]), _err(c, c_w[..., :hd]), qn, nn)
+        same = err == 0.0
+        check(same or (_close(y, y_w[..., :hd], MLSTM_F32_TOL)
+                       and _close(c, c_w[..., :hd], MLSTM_F32_TOL)
+                       and qn <= MLSTM_F32_TOL and nn <= MLSTM_F32_TOL),
+              f"phase 13 (b): mlstm_chunk on {g} value blocks differs from "
+              f"the whole launch by {err:.4g}")
+        t = out["value_blocks"][str(g)] = dict(
+            _split_times(go, "mlstm_chunk"), launches=launches,
+            columns_each=vb, bit_equal=same, max_abs_err=err)
+        print(f"phase 13 (b): mlstm_chunk [{B * H}, {S}] on each head's "
+              f"{hd} value columns in {g} block(s) of {vb} (each with its "
+              f"own column of ones, {layers._ones_width(vb)} wide), "
+              f"concatenated: "
+              + ("bit-equal to the whole launch" if same else
+                 f"{err:.4g} from the whole launch, within "
+                 f"{MLSTM_F32_TOL}")
+              + f"; {_ms_text(t)} on {smi}")
+
+    # -- the mLSTM and the sLSTM as model ranks compute them ----------------
+    want_m = layers.mlstm_chunked(x, pm, cfg, chunk=bt)
+    want_s = layers.slstm(x, ps, cfg)
+    # a second witness for the sLSTM: the whole loop in f64
+    s64 = layers.slstm(x.double(), {k: v.double() for k, v in ps.items()},
+                       cfg)
+    s_keys = ("y", *want_s[1])
+
+    def s_outs(o):
+        return (o[0], *(o[1][k] for k in want_s[1]))
+
+    def s_errs(got, want):
+        return {k: _err(g, w) for k, g, w in
+                zip(s_keys, s_outs(got), s_outs(want))}
+    whole64 = s_errs(want_s, s64)
+    # the recurrent product of one head alone against its slice of the
+    # four heads' (the per-step einsum of a rank of one head)
+    h = torch.randn((B, H, D // H), generator=gen, device=dev)
+    r4 = ps["r"].reshape(H, D // H, 4, D // H)
+    one_head = torch.equal(
+        torch.einsum("bhk,hkgj->bghj", h[:, :1], r4[:1]),
+        torch.einsum("bhk,hkgj->bghj", h, r4)[:, :, :1])
+    ht, rf = h.transpose(0, 1), ps["r"].float()
+    one_bmm = torch.equal(torch.bmm(ht[:1], rf[:1]), torch.bmm(ht, rf)[:1])
+    print(f"phase 13 (b): the sLSTM's recurrent product of one head alone "
+          f"is {'' if one_head else 'not '}bit-equal to its slice of the "
+          f"{H} heads' product (einsum; as a bmm of one head against {H}: "
+          f"{'' if one_bmm else 'not '}bit-equal); one device's f32 sLSTM "
+          f"against its f64 run: "
+          + ", ".join(f"{k} {e:.4g}" for k, e in whole64.items()))
+    for n in SPLIT_MIXER_RANKS:
+        split = f"{H // n} head(s) a rank" if H % n == 0 else \
+            f"a head's {hd * H // n} value columns a rank"
+
+        def go():
+            return shares.mixer(MLSTM, x, pm, cfg, n, None, "chunked",
+                                chunk=bt)
+        reset_launches(counters)
+        y, st = go()
+        launches = read_launches(counters)["mlstm_chunk"]
+        errs = [_err(y, want_m[0])] + [_err(st[k], want_m[1][k])
+                                       for k in ("C", "n")]
+        check(launches == n and _close(y, want_m[0], MLSTM_F32_TOL)
+              and all(_close(st[k], want_m[1][k], MLSTM_F32_TOL)
+                      for k in ("C", "n", "m")),
+              f"phase 13 (b): the mLSTM on {n} ranks differs from one "
+              f"device's by {max(errs):.4g} ({launches} launches)")
+        t0 = time.perf_counter()
+        got_s = shares.mixer(SLSTM, x, ps, cfg, n)
+        slstm_s = time.perf_counter() - t0
+        s_err = s_errs(got_s, want_s)
+        excess = _excess(s_outs(got_s), s_outs(want_s), MLSTM_F32_TOL)
+        split64 = s_errs(got_s, s64)
+        check(excess <= 1.0,
+              f"phase 13 (b): the sLSTM on {n} ranks differs from one "
+              f"device's by {s_err} ({excess:.4g} x {MLSTM_F32_TOL}'s "
+              "allowance)")
+        t = out["ranks"][str(n)] = dict(
+            _split_times(go, "mlstm_chunk"), launches=launches,
+            max_abs_err=max(errs), slstm_max_abs_err=max(s_err.values()),
+            slstm_excess=excess)
+        print(f"phase 13 (b): xlstm-125m's chunked mLSTM [{B}, {S}, {D}] f32 "
+              f"on {n} ranks ({split}): output and state within "
+              f"{MLSTM_F32_TOL} of one device (max abs err {max(errs):.4g}), "
+              f"{launches} mlstm_chunk launches, all ranks {_ms_text(t)}; "
+              f"the sLSTM ({min(n, H)} head groups; plain per-step loop, "
+              f"{slstm_s:.2f} s) against one device's f32: "
+              + ", ".join(f"{k} {e:.4g}" for k, e in s_err.items())
+              + f", at most {excess:.4g} x {MLSTM_F32_TOL}'s allowance; "
+              f"against the f64 run: "
+              + ", ".join(f"{k} {e:.4g}" for k, e in split64.items())
+              + f" on {smi}")
+    return out
+
+
+def phase13(dev, smi: str, p12_peak_ratio: float) -> dict:
+    """Phase 13: the split's per-rank shares on the one card (a card holds
+    one rank's share; the phase computes every rank's in turn and puts
+    them together as the collectives do).  Returns the kernels line's
+    ``split_path`` entries, by kernel name."""
+    import torch
+    counters = launch_counters()
+    with torch.no_grad():
+        moe = _split_moe(dev, smi, counters)
+        torch.cuda.empty_cache()
+        xl = _split_xlstm(dev, smi, counters)
+    torch.cuda.empty_cache()
+    check(abs(p12_peak_ratio - 1.0) <= PEAK_TOL,
+          f"phase 13 (c): phase 12's peak is {p12_peak_ratio:.4f} x its "
+          f"prediction, past {PEAK_TOL}")
+    print(f"phase 13 (c): the one-card mesh as it was: phase 11 (a) "
+          f"bit-equal to phases 7 and 10 with their launch counts (checked "
+          f"there), phase 12's state bytes equal to the prediction (checked "
+          f"there) and its peak {p12_peak_ratio:.4f} x the prediction, "
+          f"within {PEAK_TOL}")
+    return {SERVE_ARCH: moe, "xlstm-125m": {"mlstm_chunk": xl}}
 
 
 def main() -> int:
@@ -3982,10 +4363,17 @@ def main() -> int:
         if k["name"] in p11:
             k["mesh_path"] = {SERVE_ARCH: p11[k["name"]]}
     # -- phase 12: the production dry run's one-card cell ---------------------
-    p12 = phase12(dev, smi)
+    p12, p12_peak = phase12(dev, smi)
     for k in kernels:
         if p12.get(k["name"]):
             k["dryrun_path"] = {SERVE_ARCH: p12[k["name"]]}
+    # -- phase 13: the split's per-rank shares on the card ---------------------
+    p13 = phase13(dev, smi, p12_peak)
+    for k in kernels:
+        path = {arch: res[k["name"]] for arch, res in p13.items()
+                if k["name"] in res}
+        if path:
+            k["split_path"] = path
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

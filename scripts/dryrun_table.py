@@ -4,7 +4,8 @@ split over ``model``.
 
 Reads the JSON cells that ``python -m repro_torch.launch.dryrun`` writes,
 once with ``--no-split --tag no-split`` and once with ``--tag split``
-(the same ``--out`` or two), and prints per cell: the state and the peak
+(the same ``--out`` or two; ``--before`` and ``--after`` name other tags,
+such as two trees' sweeps), and prints per cell: the state and the peak
 of live bytes a rank (GB; the card has 80), the counted FLOPs a rank, the
 FLOPs of all ranks over the analytic ``model_flops``, the collective
 bytes a rank (ring model) and the roofline seconds (datasheet rates, not
@@ -41,8 +42,10 @@ def _pair(fn, cells):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("dirs", nargs="+")
+    ap.add_argument("--before", default="no-split")
+    ap.add_argument("--after", default="split")
     args = ap.parse_args()
-    before, after = load(args.dirs, "no-split"), load(args.dirs, "split")
+    before, after = load(args.dirs, args.before), load(args.dirs, args.after)
     keys = sorted({(a, s) for a, s, _ in list(before) + list(after)})
     print("| arch | shape | state GB | peak GB before → after | FLOPs a "
           "rank after (×10¹²) | FLOPs×n / model before → after | "

@@ -1,4 +1,5 @@
-"""Time the port's serving of granite-moe-3b-a800m on the card, repeated.
+"""Time the port's serving and training of granite-moe-3b-a800m on the
+card, repeated.
 
     python scripts/torch_serve_timing.py [--src TREE] [--repeats N]
 
@@ -14,15 +15,19 @@ the first MoE layer's own inputs in a prefill and in a decode step, that
 combine against the ``index_add_`` it replaced and the stable-sort
 ``layers.topk`` against ``torch.topk`` (CUDA events around one call: in
 the decode step, where the device waits for the host, the host's time).
-Prints the card's line from ``nvidia-smi`` and, last, one JSON object.
+Then it trains ``chip_smoke.py`` phase 10's model from seed 0 (batch 4 x
+1024, remat, AdamW): one warm-up step and ``N`` timed steps (host clock
+to a synchronize) with their losses.  Prints the card's line from ``nvidia-smi`` and, last, one JSON object.
 Needs one card; exits 2 without one.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,8 +47,10 @@ def main() -> int:
     from chip_smoke import profile_launch, smi_line, time_ms
     sys.path.insert(0, str(Path(args.src).resolve() / "src"))
     from repro_torch import configs
+    from repro_torch.configs.base import ShapeCfg
     from repro_torch.launch import serve
     from repro_torch.models import Model, layers
+    from repro_torch.runtime import Trainer
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
@@ -74,14 +81,27 @@ def main() -> int:
         if hasattr(layers, "_combine"):
             seen = {}
             real_topk, real_combine = layers.topk, layers._combine
+            # the combine's arguments: (contrib, tok, K) in trees before
+            # the capacity split; (out_buf, routing, K, C, own) after it,
+            # timed on the contributions and tokens they give
+            old = len(inspect.signature(real_combine).parameters) == 3
 
             def topk(logits, K):
                 seen.setdefault(("topk", logits.shape[0]), (logits, K))
                 return real_topk(logits, K)
 
-            def combine(contrib, tok, K):
-                seen.setdefault(("combine", tok.shape[0]), (contrib, tok, K))
-                return real_combine(contrib, tok, K)
+            def combine(*a):
+                if old:
+                    seen.setdefault(("combine", a[1].shape[0]), a)
+                else:
+                    out_buf, r, K, C = a[:4]
+                    keep = r.rank < C
+                    w = r.gates.reshape(-1)[r.order] * keep.to(r.gates.dtype)
+                    contrib = out_buf[r.sorted_e, torch.where(keep, r.rank, 0)] \
+                        * w[:, None].to(out_buf.dtype)
+                    seen.setdefault(("combine", r.order.shape[0]),
+                                    (contrib, r.order // K, K, a))
+                return real_combine(*a)
 
             layers.topk, layers._combine = topk, combine
             try:
@@ -92,7 +112,8 @@ def main() -> int:
             for what, T in (("per_prefill_ms", B * S),
                             ("per_decode_step_ms", B)):
                 logits, K = seen[("topk", T)]
-                contrib, tok_of, _ = seen[("combine", T * K)]
+                contrib, tok_of, _, *call = seen[("combine", T * K)]
+                call = call[0] if call else (contrib, tok_of, K)
 
                 def index_add():
                     o = torch.zeros((T, contrib.shape[-1]),
@@ -106,8 +127,21 @@ def main() -> int:
                     "torch_topk": L * time_ms(
                         lambda: torch.topk(logits, K, dim=-1), 20),
                     "combine_fixed_order": L * time_ms(
-                        lambda: real_combine(contrib, tok_of, K), 20),
+                        lambda: real_combine(*call), 20),
                     "index_add": L * time_ms(index_add, 20)}
+    del model, caches, runs
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg, ShapeCfg("timing", S, B, "train"), dev, seed=0)
+    tr.init_state()
+    tr.run(1)
+    out["train_step_ms"], out["train_loss"] = [], []
+    for _ in range(args.repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["train_loss"].append(tr.run(1).losses[0])
+        torch.cuda.synchronize()
+        out["train_step_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["train_step_ms_median"] = statistics.median(out["train_step_ms"])
     print(smi)
     print(json.dumps(out))
     return 0

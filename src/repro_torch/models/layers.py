@@ -31,31 +31,41 @@ the sLSTM stay plain torch ops: the JAX package computes them outside any
 Pallas kernel (the attention kernel assumes aligned q and k positions;
 cross-attention has no positions to align, so its decode runs the kernel).
 
-The split over a mesh's ``model`` dim.  The attention, FFN, MoE and
-RG-LRU functions take the reference's ``ac`` hook: None on one device
-(the one-device path, op for op), or a
-:class:`~repro_torch.parallel.split.ModelSplit`, and then ``p`` holds
-this rank's blocks of the ``model``-split parameters.  At the reference's
-points: ``ac(x, "mm_input")`` gathers a sequence-split residual;
-``heads4`` takes this rank's heads (:func:`_heads`, :func:`_local_heads`:
-a projection whose columns do not line up with heads is gathered first,
-as GSPMD reshards it, and a head count that the split does not divide
-keeps every head on every rank); ``attn_mix`` / ``ffn_hidden`` end in a
-row-parallel product whose partial sums are added over ``model``
-(:func:`_row_parallel`); ``moe_buf`` runs this rank's experts, or its
-slice of ``d_ff`` (:func:`_experts_of`).  The decode reads a cache split
-by heads, by slots (a log-sum-exp over ``model``) or whole.  The mLSTM
-and the sLSTM take no hook: their blocks compute whole.
+The split over a mesh's ``model`` dim.  Every mixer and FFN takes the
+reference's ``ac`` hook: None on one device (the one-device path, op for
+op), or a :class:`~repro_torch.parallel.split.ModelSplit`, and then ``p``
+holds this rank's blocks of the ``model``-split parameters.  At the
+reference's points: ``ac(x, "mm_input")`` gathers a sequence-split
+residual; ``heads4`` takes this rank's heads (:func:`_heads`,
+:func:`_kv_for`: a projection whose columns do not line up with heads is
+gathered first, as GSPMD reshards it, and a head count that the split
+does not divide keeps every head on every rank); ``attn_mix`` /
+``ffn_hidden`` end in a row-parallel product whose partial sums are added
+over ``model`` (:func:`_row_parallel`); ``moe_buf`` runs this rank's
+experts, or its slice of ``d_ff`` (:func:`_experts_of`), on its slice of
+the capacity where the rule splits it over the fsdp axes
+(:func:`moe_ffn_global`; the grouped dispatch keeps each row on its
+rank); the mLSTM runs this rank's heads, or its block of one head's
+value columns, and the sLSTM its heads (:func:`_split_mixer`), each with
+``w_o`` row-parallel.  The decode reads a cache split by heads, by slots
+(a log-sum-exp over ``model``) or whole.  Each split computation that the
+mixers and the MoE run is a *share* function of the rank's index and the
+split's size (:func:`moe_capacity_share`, :func:`moe_grouped_share`,
+:func:`mlstm_scan_share`, :func:`mlstm_chunked_share`,
+:func:`slstm_share`): the mesh path calls it with its own index, and a
+harness with one card can call it for every index and assemble the
+shares as the collectives do.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ModelConfig
+from ..configs.base import MLSTM, SLSTM, ModelConfig
 from ..kernels import flash_attention, mlstm_chunk, moe_gmm, rglru_scan
 
 Params = Mapping[str, torch.Tensor]
@@ -413,12 +423,14 @@ def ffn(x, p: Params, cfg: ModelConfig, ac=None):
 # ---------------------------------------------------------------------------
 
 
-def moe_ffn(x, p: Params, cfg: ModelConfig, ac=None):
-    """The MoE over the whole ``x`` (its sequence already gathered on a
-    split mesh: the caller's ``mm_input``)."""
+def moe_ffn(x, p: Params, cfg: ModelConfig, ac=None, rows=None):
+    """The MoE over ``x`` (its sequence already gathered on a split mesh:
+    the caller's ``mm_input``); on a mesh ``rows`` is the executor's
+    :class:`~repro_torch.parallel.split.MoERows` (the global dispatch's
+    rows and capacity split)."""
     if cfg.moe_impl == "grouped":
         return moe_ffn_grouped(x, p, cfg, ac)
-    return moe_ffn_global(x, p, cfg, ac)
+    return moe_ffn_global(x, p, cfg, ac, rows)
 
 
 def topk(logits, K: int):
@@ -431,15 +443,27 @@ def topk(logits, K: int):
     return values[..., :K], idx[..., :K]
 
 
-def _route(logits, K: int, E: int, C: int):
+class Routing(NamedTuple):
+    """Top-k routing of ``T`` tokens to ``E`` experts, ``N = T * K``
+    entries sorted stably by expert (``[...]``: the grouped dispatch's
+    batch rows): the softmaxed ``gates [..., T, K]``, the sort ``order
+    [..., N]`` (entry ``order[i]`` is token ``order[i] // K``'s), each
+    sorted entry's expert ``sorted_e`` and ``rank`` within its expert,
+    each expert's first sorted entry ``starts [..., E]`` and its rows kept,
+    ``counts [..., E]`` (``min(routed, C)``)."""
+    gates: torch.Tensor
+    order: torch.Tensor
+    sorted_e: torch.Tensor
+    rank: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+
+
+def _route(logits, K: int, E: int, C: int) -> Routing:
     """Top-k routing with a stable sort by expert, as the JAX dispatch
-    computes it, over the last two dimensions of ``logits [..., T, E]``
-    (``N = T * K`` entries): the softmaxed gates ``[..., T, K]``, the
-    sort ``order [..., N]``, each sorted entry's expert ``sorted_e``, its
-    rank within its expert and ``counts [..., E]``, the rows kept for each
-    expert (``min(routed, C)``).  The experts are :func:`topk`'s, so tied
-    logits pick the experts ``lax.top_k`` picks.  Nothing here waits for
-    the device."""
+    computes it, over the last two dimensions of ``logits [..., T, E]``.
+    The experts are :func:`topk`'s, so tied logits pick the experts
+    ``lax.top_k`` picks.  Nothing here waits for the device."""
     gates, idx = topk(logits, K)
     gates = torch.softmax(gates, dim=-1)
     flat_e = idx.reshape(*idx.shape[:-2], -1)
@@ -451,25 +475,56 @@ def _route(logits, K: int, E: int, C: int):
     ends = torch.searchsorted(sorted_e, experts, right=True)
     rank = torch.arange(sorted_e.shape[-1], device=logits.device) \
         - torch.gather(starts, -1, sorted_e)
-    return gates, order, sorted_e, rank, (ends - starts).clamp(max=C)
+    return Routing(gates, order, sorted_e, rank, starts,
+                   (ends - starts).clamp(max=C))
 
 
-def _combine(contrib, tok, K: int):
-    """Each token's output: the sum of its ``K`` contributions, which
-    ``contrib [..., N, D]`` holds in sorted-entry order (the stable sort
-    by expert), ``tok [..., N]`` naming each one's token.  The reference
-    scatter-adds them into zeros in that order, that is by expert
-    ascending; so do these adds, one after another in ``contrib``'s
-    type, with no atomics: the same bits on every run.  Returns
-    ``[..., T, D]``."""
-    lead, N = tok.shape[:-1], tok.shape[-1]
+def _dispatch(x, r: Routing, K: int, e0: int, El: int, c0: int, Cl: int):
+    """The capacity buffer's rows ``[c0, c0 + Cl)`` of experts ``[e0, e0 +
+    El)``, ``[..., El, Cl, D]``, from the tokens' rows ``x [..., T, D]``:
+    row ``j`` of expert ``e`` holds the token of the ``(c0 + j)``-th entry
+    routed to ``e``, and zeros from that slice's count of kept rows on
+    (``clamp(counts[e] - c0, 0, Cl)``, returned too).  On one device
+    ``c0 = 0`` and ``Cl = C``: the reference's buffer."""
+    N = r.order.shape[-1]
+    counts = (r.counts[..., e0:e0 + El] - c0).clamp(0, Cl)     # [..., El]
+    j = torch.arange(Cl, device=x.device)
+    pos = (r.starts[..., e0:e0 + El, None] + c0 + j).clamp(max=N - 1)
+    tok = torch.gather(r.order, -1, pos.flatten(-2)) // K       # [..., El*Cl]
+    # indexing, not gather: its backward accumulates with the card's
+    # deterministic index_put (gather's scatter_add adds atomically)
+    lead = tuple(torch.arange(n, device=x.device).reshape(
+        n, *(1,) * (tok.dim() - 1 - i)) for i, n in enumerate(tok.shape[:-1]))
+    rows = x[lead + (tok,)]                                     # [..., El*Cl, D]
+    live = (j < counts[..., None])[..., None]                  # [..., El,Cl,1]
+    return torch.where(live, rows.reshape(live.shape[:-1] + x.shape[-1:]),
+                       0.0).to(x.dtype), counts
+
+
+def _combine(out_buf, r: Routing, K: int, C: int, own=None):
+    """Each token's output: the sum of its ``K`` contributions, its gates
+    times the expert outputs ``out_buf [..., E, C, D]`` at its kept
+    entries (zero where dropped); for tokens ``[t0, t0 + n)`` only where
+    ``own = (t0, n)``.  The reference scatter-adds the contributions into
+    zeros in sorted-entry order, that is by expert ascending; so do these
+    adds, one after another in ``out_buf``'s type, with no atomics: the
+    same bits on every run.  Returns ``[..., T or n, D]``."""
     # each token's K sorted positions, ascending (by expert): a stable
     # sort by token
-    where = torch.sort(tok, dim=-1, stable=True).indices
-    where = where.reshape(*lead, N // K, K)
-    rows = tuple(torch.arange(n, device=tok.device).reshape(
-        n, *(1,) * (len(lead) - i + 1)) for i, n in enumerate(lead))
-    parts = contrib[rows + (where,)]                      # [..., T, K, D]
+    where = torch.sort(r.order // K, dim=-1, stable=True).indices
+    if own is not None:
+        where = where[..., own[0] * K:(own[0] + own[1]) * K]
+    e = torch.gather(r.sorted_e, -1, where)
+    rank = torch.gather(r.rank, -1, where)
+    keep = rank < C
+    w = torch.gather(r.gates.flatten(-2), -1,
+                     torch.gather(r.order, -1, where)) * keep.to(r.gates.dtype)
+    lead = tuple(torch.arange(n, device=where.device).reshape(
+        n, *(1,) * (where.dim() - 1 - i))
+        for i, n in enumerate(where.shape[:-1]))
+    parts = out_buf[lead + (e, torch.where(keep, rank, 0))] \
+        * w[..., None].to(out_buf.dtype)
+    parts = parts.reshape(*where.shape[:-1], -1, K, out_buf.shape[-1])
     out = torch.zeros_like(parts[..., 0, :])
     for k in range(K):
         out = out + parts[..., k, :]
@@ -509,82 +564,114 @@ def _expert_outputs(ac, outs, E: int, f_split: bool, dim: int):
     return ac.sum(outs) if f_split else outs
 
 
-def moe_ffn_global(x, p: Params, cfg: ModelConfig, ac=None):
+def global_capacity(T: int, cfg: ModelConfig) -> int:
+    """The global dispatch's expert capacity for ``T`` tokens."""
+    m = cfg.moe
+    C = int(math.ceil(T * m.top_k / m.n_experts * m.capacity_factor))
+    return max(1, min(C, T))
+
+
+def grouped_capacity(S: int, cfg: ModelConfig) -> int:
+    """The grouped dispatch's expert capacity for a row of ``S`` tokens."""
+    m = cfg.moe
+    C = int(math.ceil(S * m.top_k / m.n_experts * m.capacity_factor))
+    return max(1, min(C, S * m.top_k))
+
+
+def moe_capacity_share(xf, r: Routing, p: Params, cfg: ModelConfig,
+                       C: int, c: int = 0, n_c: int = 1, e0: int = 0):
+    """One rank's share of the global dispatch's expert products: slice
+    ``c`` of ``n_c`` of the capacity (rows ``[c·C/n_c, (c+1)·C/n_c)`` of
+    every expert, filled from the whole batch's rows ``xf [T, D]``)
+    through ``p``'s experts: all of them, the block that starts at expert
+    ``e0`` (EP), or every expert's block of ``d_ff`` (expert-TP: partial
+    sums).  Returns ``[E or its block, C/n_c, D]``; the slices of all
+    ranks, concatenated along the capacity (and the blocks gathered or
+    summed over ``model``), are the whole buffer's outputs."""
+    El = (p["wd"] if cfg.act == "swiglu" else p["w2"]).shape[0]
+    Cl = C // n_c
+    buf, counts = _dispatch(xf, r, cfg.moe.top_k, e0, El, c * Cl, Cl)
+    return _expert_products(buf, p, cfg, counts)
+
+
+def moe_ffn_global(x, p: Params, cfg: ModelConfig, ac=None, rows=None):
     """Sort-based top-k MoE with static capacity (tokens over capacity are
     dropped, matching capacity-factor semantics) over all B*S tokens at
-    once.  x: [B,S,D]."""
-    m = cfg.moe
+    once.  x: [B,S,D].
+
+    On a mesh (``rows``) ``x`` is this rank's rows: their router logits
+    and the rows themselves are gathered over the ranks of the rows
+    (``rows.rows``), the whole batch is routed alike on every rank, and
+    this rank computes its slice of the capacity where the reference's
+    ``moe_buf`` rule splits it over the fsdp axes (``rows.capacity``;
+    :func:`moe_capacity_share`), its experts' or its ``d_ff`` block's;
+    the slices' outputs are gathered, and this rank combines its own
+    tokens."""
     B, S, D = x.shape
-    T = B * S
-    E, K = m.n_experts, m.top_k
-    C = int(math.ceil(T * K / E * m.capacity_factor))
-    C = max(1, min(C, T))
-
-    xf = x.reshape(T, D)
-    logits = (xf @ p["router"]).float()                      # [T,E]
-    gates, order, sorted_e, rank, counts = _route(logits, K, E, C)
-    tok = order // K                                          # token of entry
-    keep = rank < C
-    slot_e = torch.where(keep, sorted_e, E)                   # drop -> row E
-    slot_c = torch.where(keep, rank, 0)
-
-    # dropped entries land in a spare expert row that is cut off
-    buf = torch.zeros((E + 1, C, D), dtype=x.dtype, device=x.device)
-    buf[slot_e, slot_c] = xf[tok]
-    # this rank's experts (all on one device; EP) or its slice of d_ff
-    e0, El, f_split = _experts_of(ac, p, cfg)
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    xf = x.reshape(B * S, D)
+    logits = (xf @ p["router"]).float()                       # [T,E]
+    group = rows.rows if rows is not None else None
+    if group is not None:  # the whole batch's logits and rows
+        logits, xf = group.gather(logits, 0), group.gather(xf, 0)
+    T = logits.shape[0]
+    C = global_capacity(T, cfg)
+    r = _route(logits, K, E, C)
+    cap = rows.capacity(E, C) if rows is not None else None
+    c, n_c = (cap.index, cap.n) if cap is not None else (0, 1)
+    e0, _, f_split = _experts_of(ac, p, cfg)
     out_buf = _expert_outputs(
-        ac, _expert_products(buf[e0:e0 + El], p, cfg, counts[e0:e0 + El]),
-        E, f_split, 0)
+        ac, moe_capacity_share(xf, r, p, cfg, C, c, n_c, e0), E, f_split, 0)
+    if cap is not None:
+        out_buf = cap.gather(out_buf, 1)
+    own = None if group is None else (group.index * B * S, B * S)
+    return _combine(out_buf, r, K, C, own).reshape(B, S, D).to(x.dtype)
 
-    gathered = out_buf[sorted_e, slot_c]                      # [T*K, D]
-    w = gates.reshape(-1)[order] * keep.to(gates.dtype)
-    contrib = gathered * w[:, None].to(gathered.dtype)
-    return _combine(contrib, tok, K).reshape(B, S, D).to(x.dtype)
+
+def moe_grouped_share(x, r: Routing, p: Params, cfg: ModelConfig, C: int,
+                      e0: int = 0):
+    """One rank's share of the grouped dispatch's expert products: its
+    rows ``x [B, S, D]`` through ``p``'s experts (all, the block from
+    ``e0``, or every expert's block of ``d_ff``), one grouped matmul per
+    batch row and weight: ``[B, E or its block, C, D]``."""
+    El = (p["wd"] if cfg.act == "swiglu" else p["w2"]).shape[0]
+    buf, counts = _dispatch(x, r, cfg.moe.top_k, e0, El, 0, C)
+    return torch.stack([_expert_products(buf[b], p, cfg, counts[b])
+                        for b in range(x.shape[0])])
 
 
 def moe_ffn_grouped(x, p: Params, cfg: ModelConfig, ac=None):
     """Group-local MoE dispatch: routing, sort, capacity, scatter and
     combine within each batch row (capacity enforced per row).  The
-    expert products run one grouped matmul per batch row and weight."""
-    m = cfg.moe
-    B, S, D = x.shape
-    E, K = m.n_experts, m.top_k
-    C = int(math.ceil(S * K / E * m.capacity_factor))
-    C = max(1, min(C, S * K))
-    SK = S * K
-
-    logits = (x @ p["router"]).float()                       # [B,S,E]
-    gates, order, sorted_e, rank, counts = _route(logits, K, E, C)
-    tok = order // K                                          # [B,SK]
-    keep = rank < C
-    slot_e = torch.where(keep, sorted_e, E)                   # drop -> row E
-    slot_c = torch.where(keep, rank, 0)
-
-    brow = torch.arange(B, device=x.device)[:, None].expand(B, SK)
-    xg = torch.gather(x, 1, tok[..., None].expand(B, SK, D))  # [B,SK,D]
-    buf = torch.zeros((B, E + 1, C, D), dtype=x.dtype, device=x.device)
-    buf[brow, slot_e, slot_c] = xg
-    e0, El, f_split = _experts_of(ac, p, cfg)
-    out_buf = _expert_outputs(ac, torch.stack([
-        _expert_products(buf[b, e0:e0 + El], p, cfg, counts[b, e0:e0 + El])
-        for b in range(B)]), E, f_split, 1)
-
-    gathered = out_buf[brow, sorted_e, slot_c]                # [B,SK,D]
-    w = torch.gather(gates.reshape(B, SK), 1, order) * keep.to(gates.dtype)
-    contrib = gathered * w[..., None].to(gathered.dtype)
-    return _combine(contrib, tok, K).to(x.dtype)
+    expert products run one grouped matmul per batch row and weight.  On
+    a mesh each rank dispatches, computes and combines its own rows: no
+    row leaves its rank."""
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    C = grouped_capacity(x.shape[1], cfg)
+    r = _route((x @ p["router"]).float(), K, E, C)            # [B,S,E]
+    e0, _, f_split = _experts_of(ac, p, cfg)
+    out_buf = _expert_outputs(ac, moe_grouped_share(x, r, p, cfg, C, e0),
+                              E, f_split, 1)
+    return _combine(out_buf, r, K, C).to(x.dtype)
 
 
-def moe_aux_loss(x, p: Params, cfg: ModelConfig):
+def moe_aux_loss(x, p: Params, cfg: ModelConfig, rows=None):
     """Load-balancing auxiliary loss (Switch-style) of x [B,S,D]: the
     experts' share of the routed entries (the :func:`topk` experts, as the
     dispatch picks them) against their mean router probability, times
     ``n_experts``; a scalar f32.  The shares count entries, so they carry
-    no gradient (as in the reference)."""
+    no gradient (as in the reference).  On a mesh (``rows``: the
+    executor's :class:`~repro_torch.parallel.split.MoERows`) the
+    statistics are the whole batch's, as on one device: the global
+    dispatch takes them from the gathered router logits, the grouped one
+    adds its counts and probability sums over the ranks of the rows."""
     m = cfg.moe
     T = x.shape[0] * x.shape[1]
     logits = (x.reshape(T, -1) @ p["router"]).float()
+    group = rows.rows if rows is not None else None
+    if group is not None and cfg.moe_impl != "grouped":
+        logits, group = group.gather(logits, 0), None
+        T = logits.shape[0]
     probs = torch.softmax(logits, dim=-1)
     _, idx = topk(logits, m.top_k)
     # the reference's .at[idx].add(1.0): whole numbers, exact in any order
@@ -593,8 +680,14 @@ def moe_aux_loss(x, p: Params, cfg: ModelConfig):
                          device=x.device).index_add_(
         0, flat, torch.ones(flat.shape, dtype=torch.float32,
                             device=x.device))
-    frac_tokens = counts / (T * m.top_k)
-    frac_probs = probs.mean(dim=0)
+    if group is None:
+        frac_tokens = counts / (T * m.top_k)
+        frac_probs = probs.mean(dim=0)
+    else:
+        counts, prob_sums = group.sum(counts), group.sum(probs.sum(dim=0))
+        T *= group.n
+        frac_tokens = counts / (T * m.top_k)
+        frac_probs = prob_sums / T
     return m.n_experts * torch.sum(frac_tokens * frac_probs)
 
 
@@ -696,51 +789,157 @@ def init_mlstm(cfg: ModelConfig, dtype, device, generator
                                        ("w_skip", (d, de), s))}
 
 
-def _mlstm_inputs(x, p: Params, cfg: ModelConfig):
-    """q, k (scaled by 1/√hd), v [B,S,H,hd] and the log input and forget
-    gates [B,S,H] f32."""
+def _head_split(kind: str, cfg: ModelConfig, n: int):
+    """How a split of ``n`` ranks over ``model`` divides an mLSTM's or
+    sLSTM's heads: ``(heads a rank, blocks a head)``, ``(H / n, 1)`` where
+    ``n`` divides the ``H`` heads, ``(1, n / H)`` where ``H`` divides
+    ``n`` and the blocks divide a head's split columns (the mLSTM's value
+    columns, the sLSTM's rows of ``w_o``); None where neither holds, and
+    the mixer computes whole on every rank."""
+    H = cfg.n_heads
+    width = (2 if kind == MLSTM else 1) * cfg.d_model // H
+    if H % n == 0:
+        return H // n, 1
+    if n % H == 0 and width % (n // H) == 0:
+        return 1, n // H
+    return None
+
+
+def _heads_of(kind: str, cfg: ModelConfig, index: int, n: int):
+    """(first head, heads, block, blocks a head) of rank ``index`` of
+    ``n``; ``(0, H, 0, 1)`` for ``n = 1``."""
+    hl, g = _head_split(kind, cfg, n)
+    return index // g * hl, hl, index % g, g
+
+
+def whole_params(kind: str, cfg: ModelConfig, n: int) -> frozenset:
+    """The parameters of an mLSTM or sLSTM mixer (``kind``) that a split
+    of ``n`` ranks over ``model`` gathers whole: the fused columns that
+    each rank regroups by its heads (the mLSTM's ``w_qkv``, the sLSTM's
+    gate-major ``w_x``), or every one where the split cannot divide the
+    heads (:func:`_head_split`)."""
+    if _head_split(kind, cfg, n) is None:
+        return frozenset(("w_qkv", "w_if", "w_skip", "w_o") if kind == MLSTM
+                         else ("w_x", "r", "w_o"))
+    return frozenset(("w_qkv",) if kind == MLSTM else ("w_x",))
+
+
+def state_layouts(kind: str, cfg: ModelConfig, n: int) -> Dict:
+    """How a split of ``n`` ranks holds an mLSTM's or sLSTM's state
+    tensors (:meth:`~repro_torch.parallel.split.ModelSplit.relayout`'s
+    layouts): by heads (dim 1), or, where each head runs on ``n / H``
+    ranks, the mLSTM's ``C [B, H, hk, hv]`` by heads and value columns and
+    its ``n``, ``m`` and the sLSTM's states by heads alone, each on the
+    ranks of its head; None: whole."""
+    keys = ("C", "n", "m") if kind == MLSTM else ("c", "n", "h", "m")
+    split = _head_split(kind, cfg, n)
+    if split is None:
+        return dict.fromkeys(keys)
+    hl, g = split
+    if g == 1:
+        return dict.fromkeys(keys, 1)
+    H = cfg.n_heads
+    out = dict.fromkeys(keys, ((1, H),))
+    if kind == MLSTM:
+        out["C"] = ((1, H), (3, g))
+    return out
+
+
+def _split_mixer(share, kind: str, x, p: Params, cfg: ModelConfig, state,
+                 ac):
+    """An mLSTM or sLSTM (``kind``) over ``x``, from its share function
+    ``share(x, p, cfg, state, index, n) -> (partial output, state)``: on
+    one device the whole (``n = 1``); on a split mesh (``ac``) this rank's
+    heads, or its block of one head, on the gathered sequence, the partial
+    outputs of its rows of ``w_o`` added over ``model`` (the reference
+    splits ``w_o`` by rows); where the split cannot divide the heads,
+    whole on every rank."""
+    if ac is None:
+        return share(x, p, cfg, state)
+    x = ac(x, "mm_input")
+    if _head_split(kind, cfg, ac.n) is None:
+        y, state = share(x, p, cfg, state)
+        return (ac.own(y, 1) if ac.seq else y), state
+    y, state = share(x, p, cfg, state, ac.index, ac.n)
+    return ac.sum_seq(y), state
+
+
+def _mlstm_inputs(x, p: Params, cfg: ModelConfig, index: int = 0,
+                  n: int = 1):
+    """q, k (scaled by 1/√hd), v ``[B,S,h,·]`` and the log input and
+    forget gates ``[B,S,h]`` f32 of rank ``index`` of ``n``'s heads: all
+    ``H`` for ``n = 1``; ``H / n`` heads, or one head's block of ``hd / g``
+    value columns where its ``g = n / H`` ranks share it (the reference's
+    ``ffn_hidden`` constraint on the fused projection, regrouped by
+    heads: ``p["w_qkv"]`` is whole, and the rank takes its heads' q, k and
+    v columns; ``w_if`` its heads' gate columns)."""
     B, S, D = x.shape
     H = cfg.n_heads
     hd = 2 * D // H
-    q, k, v = (x @ p["w_qkv"]).split(2 * D, dim=-1)
-    q = q.reshape(B, S, H, hd) / math.sqrt(hd)
-    k = k.reshape(B, S, H, hd) / math.sqrt(hd)
-    v = v.reshape(B, S, H, hd)
-    gates = (x @ p["w_if"]).float().reshape(B, S, 2, H)
+    w, w_if = p["w_qkv"], p["w_if"]
+    if n == 1:
+        q, k, v = (x @ w).split(2 * D, dim=-1)
+        hl = H
+    else:
+        h0, hl, b, g = _heads_of(MLSTM, cfg, index, n)
+        vb, de = hd // g, 2 * D
+        qk = slice(h0 * hd, (h0 + hl) * hd)
+        v0 = 2 * de + h0 * hd + b * vb
+        w = torch.cat([w[:, qk], w[:, de + qk.start:de + qk.stop],
+                       w[:, v0:v0 + hl * vb]], dim=1)
+        w_if = torch.cat([w_if[:, h0:h0 + hl], w_if[:, H + h0:H + h0 + hl]],
+                         dim=1)
+        q, k, v = (x @ w).split([hl * hd, hl * hd, hl * vb], dim=-1)
+    q = q.reshape(B, S, hl, hd) / math.sqrt(hd)
+    k = k.reshape(B, S, hl, hd) / math.sqrt(hd)
+    v = v.reshape(B, S, hl, -1)
+    gates = (x @ w_if).float().reshape(B, S, 2, hl)
     return q, k, v, _log_sigmoid(gates[:, :, 0]), _log_sigmoid(gates[:, :, 1])
 
 
 def _mlstm_out(x, h, p: Params):
-    """The block's output from the cell's h [B,S,2D]."""
+    """The block's output from the cell's h ``[B,S,2D]`` (on a split mesh
+    this rank's columns of it, with its columns of ``w_skip`` and rows of
+    ``w_o``: the partial output)."""
     return (h.to(x.dtype) * F.silu(x @ p["w_skip"])) @ p["w_o"]
 
 
-def mlstm(x, p: Params, cfg: ModelConfig, state=None):
+def mlstm(x, p: Params, cfg: ModelConfig, state=None, ac=None):
     """Stabilized mLSTM.  state: {"C": [B,H,hd,hd], "n": [B,H,hd], "m":
     [B,H]}, f32.  The chunked form for full sequences when
-    ``cfg.mlstm_impl == "chunked"``; the decode (S = 1) stays per-step."""
+    ``cfg.mlstm_impl == "chunked"``; the decode (S = 1) stays per-step.
+    On a split mesh (``ac``) the state holds this rank's heads or value
+    columns (:func:`state_layouts`)."""
     if cfg.mlstm_impl == "chunked" and x.shape[1] > 1:
-        return mlstm_chunked(x, p, cfg, state, chunk=cfg.mlstm_chunk)
-    return _mlstm_scan(x, p, cfg, state)
+        return mlstm_chunked(x, p, cfg, state, chunk=cfg.mlstm_chunk, ac=ac)
+    return _mlstm_scan(x, p, cfg, state, ac=ac)
 
 
-def _mlstm_state(state, B: int, H: int, hd: int, device):
+def _mlstm_state(state, B: int, H: int, hk: int, hv: int, device):
     if state is None:
         f32 = dict(dtype=torch.float32, device=device)
-        return (torch.zeros((B, H, hd, hd), **f32),
-                torch.zeros((B, H, hd), **f32),
+        return (torch.zeros((B, H, hk, hv), **f32),
+                torch.zeros((B, H, hk), **f32),
                 torch.full((B, H), -1e30, **f32))
     return tuple(state[k].float() for k in ("C", "n", "m"))
 
 
-def _mlstm_scan(x, p: Params, cfg: ModelConfig, state=None):
+def _mlstm_scan(x, p: Params, cfg: ModelConfig, state=None, ac=None):
     """The per-step recurrence in plain tensor ops, the JAX ``lax.scan``
-    step for step."""
-    B, S, D = x.shape
-    H = cfg.n_heads
-    hd = 2 * D // H
-    q, k, v, log_i, log_f = _mlstm_inputs(x, p, cfg)
-    C, n, m = _mlstm_state(state, B, H, hd, x.device)
+    step for step (on a split mesh: :func:`_split_mixer`)."""
+    return _split_mixer(mlstm_scan_share, MLSTM, x, p, cfg, state, ac)
+
+
+def mlstm_scan_share(x, p: Params, cfg: ModelConfig, state=None,
+                     index: int = 0, n: int = 1):
+    """Rank ``index`` of ``n``'s share of :func:`_mlstm_scan`: the
+    recurrence of its heads or value columns (:func:`_mlstm_inputs`), its
+    partial output and its state.  The normalizer and the stabilizer are
+    per head: every rank of a head computes them alike."""
+    B, S, _ = x.shape
+    q, k, v, log_i, log_f = _mlstm_inputs(x, p, cfg, index, n)
+    hl, hk, hv = q.shape[2], q.shape[3], v.shape[3]
+    C, nrm, m = _mlstm_state(state, B, hl, hk, hv, x.device)
     hs = []
     for t in range(S):
         q_t, k_t, v_t = q[:, t].float(), k[:, t].float(), v[:, t].float()
@@ -750,13 +949,13 @@ def _mlstm_scan(x, p: Params, cfg: ModelConfig, state=None):
         i_sc = torch.exp(li - m_new)[..., None]
         C = f_sc[..., None] * C + i_sc[..., None] * (
             k_t[..., :, None] * v_t[..., None, :])
-        n = f_sc * n + i_sc * k_t
+        nrm = f_sc * nrm + i_sc * k_t
         num = torch.einsum("bhk,bhkv->bhv", q_t, C)
-        den = torch.einsum("bhk,bhk->bh", q_t, n).abs()
+        den = torch.einsum("bhk,bhk->bh", q_t, nrm).abs()
         hs.append(num / torch.maximum(den, torch.exp(-m_new))[..., None])
         m = m_new
-    h = torch.stack(hs, dim=1).reshape(B, S, 2 * D)
-    return _mlstm_out(x, h, p), {"C": C, "n": n, "m": m}
+    h = torch.stack(hs, dim=1).reshape(B, S, hl * hv)
+    return _mlstm_out(x, h, p), {"C": C, "n": nrm, "m": m}
 
 
 def _ones_width(hd: int) -> int:
@@ -767,7 +966,7 @@ def _ones_width(hd: int) -> int:
 
 
 def mlstm_chunked(x, p: Params, cfg: ModelConfig, state=None,
-                  chunk: int = 128):
+                  chunk: int = 128, ac=None):
     """Chunked mLSTM on the ``mlstm_chunk`` kernel: the same function as
     :func:`_mlstm_scan` with the matrix state crossing memory once per
     chunk of ``min(chunk, S)`` steps (``S`` a multiple of it, as in the
@@ -776,8 +975,8 @@ def mlstm_chunked(x, p: Params, cfg: ModelConfig, state=None,
     The kernel is the *unstabilized* core ``C_t = f_t C_{t-1} + i_t k_t
     v_tᵀ``, ``y_t = q_t C_t``, fed ``lf = log σ(f)`` and ``gi = σ(i)``.
     The normalizer ``n_t = f_t n_{t-1} + i_t k_t`` rides along as a column
-    of ones appended to ``v``: ``y[..., hd]`` is ``q_t·n_t`` and the final
-    state's column ``hd`` is ``n_T``.  Then ``h_t = q_t·C_t / max(|q_t·n_t|,
+    of ones appended to ``v``: ``y[..., hv]`` is ``q_t·n_t`` and the final
+    state's column ``hv`` is ``n_T``.  Then ``h_t = q_t·C_t / max(|q_t·n_t|,
     1)``, which is the JAX package's ``num / max(den, e^{-m_t})`` exactly:
     its stabilized state is ``Ĉ = C e^{-m}``.  Every log-gate is ≤ 0
     (sigmoid gates), so the kernel's exponents are ≤ 0, nothing overflows,
@@ -789,42 +988,55 @@ def mlstm_chunked(x, p: Params, cfg: ModelConfig, state=None,
     from either; compare ``C·e^{m}`` and ``n·e^{m}``, never the raw entries.
     A given ``state`` enters by linearity: its unscaled ``[C·e^{m} | n·e^{m}]``
     decayed by ``e^{L_t}`` (``L`` the cumulative log-forget) is added to
-    the kernel's outputs and final state."""
+    the kernel's outputs and final state.
+
+    On a split mesh (``ac``; :func:`_split_mixer`) the kernel runs on this
+    rank's heads, or on its block of a head's value columns with the
+    column of ones of its own: the value columns are independent, so the
+    blocks of a head together are the head."""
+    return _split_mixer(functools.partial(mlstm_chunked_share, chunk=chunk),
+                        MLSTM, x, p, cfg, state, ac)
+
+
+def mlstm_chunked_share(x, p: Params, cfg: ModelConfig, state=None,
+                        index: int = 0, n: int = 1, chunk: int = 128):
+    """Rank ``index`` of ``n``'s share of :func:`mlstm_chunked`: its heads
+    or value columns on the ``mlstm_chunk`` kernel, its partial output and
+    its state."""
     B, S, D = x.shape
-    H = cfg.n_heads
-    hd = 2 * D // H
     bt = min(chunk, S)
     if S % bt:
         raise ValueError(f"seq_len {S} must divide the mLSTM chunk {bt}")
-    q, k, v, log_i, log_f = _mlstm_inputs(x, p, cfg)
+    q, k, v, log_i, log_f = _mlstm_inputs(x, p, cfg, index, n)
+    hl, hk, hv = q.shape[2], q.shape[3], v.shape[3]
 
-    def heads(t):               # [B,S,H,...] -> [B*H,S,...] f32
+    def heads(t):               # [B,S,h,...] -> [B*h,S,...] f32
         t = t.float().transpose(1, 2)
-        return t.reshape(B * H, S, *t.shape[3:])
+        return t.reshape(B * hl, S, *t.shape[3:])
 
     q, k, v = heads(q), heads(k), heads(v)
-    lf = heads(log_f)[..., None]                      # [B*H,S,1]
+    lf = heads(log_f)[..., None]                      # [B*h,S,1]
     gi = torch.exp(heads(log_i))[..., None]
-    dv = _ones_width(hd)
+    dv = _ones_width(hv)
     f32 = dict(dtype=torch.float32, device=x.device)
-    v1 = torch.cat([v, torch.ones((B * H, S, 1), **f32),
-                    torch.zeros((B * H, S, dv - hd - 1), **f32)], dim=-1)
+    v1 = torch.cat([v, torch.ones((B * hl, S, 1), **f32),
+                    torch.zeros((B * hl, S, dv - hv - 1), **f32)], dim=-1)
     y, c_fin = mlstm_chunk(q, k, v1, lf, gi, bt)
     if state is not None:
-        C0, n0, m0 = _mlstm_state(state, B, H, hd, x.device)
-        w = torch.exp(m0).reshape(B * H, 1, 1)
-        s0 = torch.zeros((B * H, hd, dv), **f32)
-        s0[..., :hd] = C0.reshape(B * H, hd, hd) * w
-        s0[..., hd] = n0.reshape(B * H, hd) * w[..., 0]
-        decay = torch.exp(torch.cumsum(lf, dim=1))    # [B*H,S,1]
+        C0, n0, m0 = _mlstm_state(state, B, hl, hk, hv, x.device)
+        w = torch.exp(m0).reshape(B * hl, 1, 1)
+        s0 = torch.zeros((B * hl, hk, dv), **f32)
+        s0[..., :hv] = C0.reshape(B * hl, hk, hv) * w
+        s0[..., hv] = n0.reshape(B * hl, hk) * w[..., 0]
+        decay = torch.exp(torch.cumsum(lf, dim=1))    # [B*h,S,1]
         y = y + decay * (q @ s0)
         c_fin = c_fin + decay[:, -1:] * s0
-    h = y[..., :hd] / torch.clamp(y[..., hd:hd + 1].abs(), min=1.0)
-    h = h.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, 2 * D)
+    h = y[..., :hv] / torch.clamp(y[..., hv:hv + 1].abs(), min=1.0)
+    h = h.reshape(B, hl, S, hv).transpose(1, 2).reshape(B, S, hl * hv)
     return _mlstm_out(x, h, p), {
-        "C": c_fin[..., :hd].reshape(B, H, hd, hd),
-        "n": c_fin[..., hd].reshape(B, H, hd),
-        "m": torch.zeros((B, H), **f32)}
+        "C": c_fin[..., :hv].reshape(B, hl, hk, hv),
+        "n": c_fin[..., hv].reshape(B, hl, hk),
+        "m": torch.zeros((B, hl), **f32)}
 
 
 # ---------------------------------------------------------------------------
@@ -844,34 +1056,61 @@ def init_slstm(cfg: ModelConfig, dtype, device, generator
             "w_o": normal((d, d), s, dtype, device, generator)}
 
 
-def slstm(x, p: Params, cfg: ModelConfig, state=None):
+def slstm(x, p: Params, cfg: ModelConfig, state=None, ac=None):
     """sLSTM with exponential gating, a per-step loop in plain tensor ops
     (no TPU kernel computes it).  state: {"c","n","h","m": [B,D]} f32;
-    ``n`` starts at ones."""
+    ``n`` starts at ones.  On a split mesh (``ac``; :func:`_split_mixer`)
+    each rank runs the loop for its heads: the recurrence is
+    block-diagonal per head, so a head cannot split without a collective
+    every step, and where ``n`` exceeds the heads each head runs on ``n /
+    H`` ranks, each of which multiplies its block of the head's ``h`` by
+    its rows of ``w_o``."""
+    return _split_mixer(slstm_share, SLSTM, x, p, cfg, state, ac)
+
+
+def slstm_share(x, p: Params, cfg: ModelConfig, state=None, index: int = 0,
+                n: int = 1):
+    """Rank ``index`` of ``n``'s share of :func:`slstm`: the loop over its
+    heads (``w_x``'s four gate blocks of their columns; ``p["w_x"]`` whole,
+    ``p["r"]`` whole or its heads), its partial output and its state."""
     B, S, D = x.shape
     H = cfg.n_heads
     dh = D // H
-    zx = x @ p["w_x"]                                  # [B,S,4D]
+    w_x, r = p["w_x"], p["r"]
+    h0, hl, b, g = (0, H, 0, 1) if n == 1 else \
+        _heads_of(SLSTM, cfg, index, n)
+    if n > 1:
+        w_x = torch.cat([w_x[:, j * D + h0 * dh:j * D + (h0 + hl) * dh]
+                         for j in range(4)], dim=1)
+        if r.shape[0] == H:
+            r = r[h0:h0 + hl]
+    Dl = hl * dh
+    zx = x @ w_x                                       # [B,S,4*Dl]
     if state is None:
         f32 = dict(dtype=torch.float32, device=x.device)
-        c, n, h, m = (torch.zeros((B, D), **f32), torch.ones((B, D), **f32),
-                      torch.zeros((B, D), **f32), torch.zeros((B, D), **f32))
+        c, nrm, h, m = (torch.zeros((B, Dl), **f32),
+                        torch.ones((B, Dl), **f32),
+                        torch.zeros((B, Dl), **f32),
+                        torch.zeros((B, Dl), **f32))
     else:
-        c, n, h, m = (state[k].float() for k in ("c", "n", "h", "m"))
+        c, nrm, h, m = (state[k].float() for k in ("c", "n", "h", "m"))
     # recurrent weights laid out gate-major to match w_x's [4*D] layout
-    r = p["r"].float().reshape(H, dh, 4, dh)
+    r = r.float().reshape(hl, dh, 4, dh)
     hs = []
     for t in range(S):
-        zr = torch.einsum("bhk,hkgj->bghj", h.reshape(B, H, dh), r)
-        z = zx[:, t].float() + zr.reshape(B, 4 * D)
+        zr = torch.einsum("bhk,hkgj->bghj", h.reshape(B, hl, dh), r)
+        z = zx[:, t].float() + zr.reshape(B, 4 * Dl)
         zi, zf, zz, zo = z.chunk(4, dim=-1)
         m_new = torch.maximum(zf + m, zi)
         i = torch.exp(zi - m_new)
         f = torch.exp(zf + m - m_new)
         c = f * c + i * torch.tanh(zz)
-        n = f * n + i
-        h = torch.sigmoid(zo) * c / torch.clamp(n, min=1e-6)
+        nrm = f * nrm + i
+        h = torch.sigmoid(zo) * c / torch.clamp(nrm, min=1e-6)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype) @ p["w_o"]
-    return y, {"c": c, "n": n, "h": h, "m": m}
+    hs = torch.stack(hs, dim=1)
+    if g > 1:  # this rank's rows of w_o: its block of the head's columns
+        hs = hs[..., b * dh // g:(b + 1) * dh // g]
+    y = hs.to(x.dtype) @ p["w_o"]
+    return y, {"c": c, "n": nrm, "h": h, "m": m}

@@ -25,19 +25,21 @@ nothing, for parameter counts and the dry run).  On a mesh of several
 ranks its parameters are ``DTensor`` shards and :attr:`Model.executor`
 (set by :meth:`repro_torch.parallel.executor.MeshExecutor.bind`) makes
 each module's parameters whole (or this rank's block of their ``model``
-split) right before the module computes and drops them after, and
-exchanges the batch rows around each MoE layer; where ``model`` has
-several ranks, the executor's
+split) right before the module computes and drops them after, and hands
+each MoE layer its view of the batch's rows
+(:meth:`~repro_torch.parallel.executor.MeshExecutor.moe_rows`); where
+``model`` has several ranks, the executor's
 :class:`~repro_torch.parallel.split.ModelSplit` is the ``ac`` hook the
 blocks hand to the layers (the reference's ``ac`` points: heads, FFN
-hidden, experts, RG-LRU channels, the vocab of the embedding and the
-logits with a vocab-parallel cross-entropy, and under ``seq_shard`` a
-residual split over the sequence).  With no executor (one device) every
+hidden, experts, RG-LRU channels, mLSTM and sLSTM heads, the vocab of the
+embedding and the logits with a vocab-parallel cross-entropy, and under
+``seq_shard`` a residual split over the sequence).  With no executor (one device) every
 hook below is a plain call and ``ac`` is None.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Dict, List, Optional
 
@@ -113,7 +115,7 @@ class Block(nn.Module):
     recurrent block's is its state, which the prefill returns and the
     decode updates in place."""
 
-    #: the mesh executor, which exchanges the batch rows around the MoE
+    #: the mesh executor, which hands the MoE its view of the batch's rows
     executor = None
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, dtype, device,
@@ -128,10 +130,10 @@ class Block(nn.Module):
         if init is None:
             raise ValueError(spec.mixer)
         self.mixer = ParamDict(init(cfg, dtype, device, generator))
-        # the mLSTM's fused w_qkv splits by columns that are not
-        # head-aligned, and the sLSTM is a per-step loop: on a split mesh
-        # their mixers compute whole, on every rank
-        self.mixer.whole = spec.mixer in (MLSTM, SLSTM)
+        if spec.mixer in (MLSTM, SLSTM):
+            # the parameters a split of n ranks gathers whole
+            self.mixer.whole = functools.partial(L.whole_params, spec.mixer,
+                                                 cfg)
         if spec.cross_attn:
             self.norm_cross = ParamDict(L.init_norm(cfg, dtype, device))
             self.cross = ParamDict(L.init_attention(cfg, dtype, device,
@@ -190,30 +192,34 @@ class Block(nn.Module):
     def _recurrent(self, h, state=None, ac=None):
         """The recurrent mixer over ``h``: (y, new state).  The layer is
         looked up at the call, so that a harness can patch it.  On a
-        split mesh the RG-LRU splits its channels; the mLSTM and the
-        sLSTM compute whole on the gathered sequence."""
+        split mesh the RG-LRU splits its channels, the mLSTM and the
+        sLSTM their heads (:meth:`state_dims`)."""
         layer = {RGLRU: L.rglru, MLSTM: L.mlstm,
                  SLSTM: L.slstm}[self.spec.mixer]
         if ac is None:
             return layer(h, self.mixer.p, self.cfg, state)
-        if self.spec.mixer == RGLRU:
-            return layer(h, self.mixer.p, self.cfg, state, ac=ac)
-        y, state = layer(ac(h, "mm_input"), self.mixer.p, self.cfg, state)
-        return (ac.own(y, 1) if ac.seq else y), state
+        return layer(h, self.mixer.p, self.cfg, state, ac=ac)
 
-    def state_dims(self, ac) -> Dict[str, Optional[int]]:
-        """The dim of each recurrent state tensor that the mixer splits
-        over ``model`` (None: whole): the RG-LRU's channels where the
-        split divides them."""
-        split = ac is not None and self.spec.mixer == RGLRU and \
-            (self.cfg.d_rnn or self.cfg.d_model) % ac.n == 0
+    def state_dims(self, ac) -> Dict[str, object]:
+        """The layout over ``model`` of each recurrent state tensor as the
+        mixer computes it (None: whole;
+        :meth:`~repro_torch.parallel.split.ModelSplit.relayout`): the
+        RG-LRU's channels where the split divides them, the mLSTM's and
+        the sLSTM's heads (:func:`~repro_torch.models.layers.
+        state_layouts`)."""
+        keys = STATE_KEYS[self.spec.mixer]
+        if ac is None:
+            return dict.fromkeys(keys)
+        if self.spec.mixer != RGLRU:
+            return L.state_layouts(self.spec.mixer, self.cfg, ac.n)
+        split = (self.cfg.d_rnn or self.cfg.d_model) % ac.n == 0
         dims = {"h": 1, "conv": 2} if split else {}
-        return {n: dims.get(n) for n in STATE_KEYS[self.spec.mixer]}
+        return {n: dims.get(n) for n in keys}
 
-    def cache_dims(self, ac) -> Dict[str, Optional[int]]:
-        """The dim of each cache tensor that :meth:`prefill` returns split
-        over ``model`` (None: whole): kv heads where the split divides
-        them, the RG-LRU state's channels."""
+    def cache_dims(self, ac) -> Dict[str, object]:
+        """The layout over ``model`` of each cache tensor that
+        :meth:`prefill` returns (None: whole): kv heads where the split
+        divides them, the recurrent states as :meth:`state_dims` says."""
         if self.spec.mixer in STATE_KEYS:
             dims = self.state_dims(ac)
         else:
@@ -237,10 +243,11 @@ class Block(nn.Module):
 
     def _ffn(self, x, aux: Optional[list] = None, ac=None):
         """x plus the FFN; a MoE block appends its load-balancing loss to
-        ``aux`` when given.  On a mesh the MoE routes every token of the
-        batch, as on one device: the executor gathers the rows of all
-        ranks before it (and a sequence split over ``model``) and keeps
-        this rank's after."""
+        ``aux`` when given.  On a mesh the MoE takes the executor's view
+        of the batch's rows (:meth:`~repro_torch.parallel.executor.
+        MeshExecutor.moe_rows`: the global dispatch routes every token of
+        the batch, as on one device, the grouped one each row on its
+        rank), on its sequence gathered where ``model`` splits it."""
         if self.spec.ffn == NO_FFN:
             return x
         h = L.apply_norm(x, self.norm2.p, self.cfg)
@@ -249,13 +256,12 @@ class Block(nn.Module):
         ex = self.executor
         if ac is not None:
             h = ac(h, "mm_input")
-        if ex is not None:
-            h = ex.gather_rows(h)
+        # the mesh's rows where there are any (a harness patches the
+        # one-device layers with their own arguments)
+        on = () if ex is None else (ex.moe_rows(),)
         if aux is not None:
-            aux.append(L.moe_aux_loss(h, self.ffn.p, self.cfg))
-        y = L.moe_ffn(h, self.ffn.p, self.cfg, ac)
-        if ex is not None:
-            y = ex.own_rows(y)
+            aux.append(L.moe_aux_loss(h, self.ffn.p, self.cfg, *on))
+        y = L.moe_ffn(h, self.ffn.p, self.cfg, ac, *on)
         if ac is not None and ac.seq:
             y = ac.own(y, 1)
         return x + y

@@ -17,23 +17,30 @@ rank runs whole layers.  The model asks this executor, through its hooks
 
 * **parameters**: each block, the embedding, the head and the norms
   gather theirs right before use (an all-gather over their sharded mesh
-  dims, ``model`` excepted where the compute is split, unless the block
-  computes whole: the mLSTM and sLSTM mixers, whose fused ``w_qkv`` is
-  split by columns that are not head-aligned and whose sLSTM is a
-  per-step loop) and drop them after; under remat the recompute gathers
+  dims, ``model`` excepted where the compute is split, unless the layer
+  needs the parameter whole: the mLSTM's fused ``w_qkv`` and the sLSTM's
+  gate-major ``w_x``, whose column blocks do not line up with heads and
+  whose columns each rank regroups by its heads, and every parameter of
+  a mixer whose heads the split cannot divide; a mixer's ``whole`` names
+  them) and drop them after; under remat the recompute gathers
   again.  In the backward pass each gathered tensor's gradient, a partial
   sum on every rank, is reduced into its parameter's placements: a
   reduce-scatter over each gathered sharded mesh dim, then one all-reduce
   over all the replicated dims together (one flattened group), so that
   every replica of a shard receives the same bits.  That is the
   reference's ``pin_grads``.
-* **MoE rows**: the reference routes all tokens of the batch at once
-  (expert capacity is ranked over all of them, and the load-balancing
-  loss takes its statistics over all of them).  So at each MoE layer the
-  rows of every rank are gathered, routed and computed alike on every
-  rank (each ``model`` rank computing its experts, or its slice of
-  ``d_ff``), and each rank keeps its own rows of the output; the gradient
-  of the gathered rows is summed over the ranks, each keeping its own.
+* **MoE rows** (:meth:`MeshExecutor.moe_rows`): the reference routes all
+  tokens of the batch at once in its global dispatch (expert capacity is
+  ranked over all of them, and the load-balancing loss takes its
+  statistics over all of them), and pins the capacity buffer split over
+  the fsdp axes where the experts do not divide ``model``.  So the global
+  MoE gathers every rank's router logits and rows, routes the whole
+  batch alike on every rank, computes only this rank's slice of the
+  capacity (of its experts, or of its block of ``d_ff``), gathers the
+  slices' outputs and combines its own rows (with ``split=False`` it
+  computes the whole capacity).  The grouped dispatch routes
+  each row on its own, so it never gathers rows; its load-balancing
+  loss adds its statistics over the ranks of the rows.
 * **the loss**: ranks along a replicated mesh dim (``model``, unless the
   batch cannot be split) hold the same rows, so each rank's share of the
   loss is its rows' summed log-likelihood over the label count of the
@@ -58,7 +65,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .sharding import MeshRules, distribute, placements
-from .split import ModelSplit
+from .split import Group, ModelSplit, MoERows, levels
 
 
 class _Gather(torch.autograd.Function):
@@ -84,25 +91,6 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.ex.reduce(g, ctx.pl, ctx.keep), None, None, None
-
-
-class _GatherRows(torch.autograd.Function):
-    """Rows of every rank of ``group``, in rank order; backward: the sum
-    over the ranks of the gradient, this rank's rows of it."""
-
-    @staticmethod
-    def forward(ctx, x, group, n, index):
-        ctx.group, ctx.n, ctx.index = group, n, index
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=0)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g.chunk(ctx.n, dim=0)[ctx.index].contiguous(), None, None, \
-            None
 
 
 class MeshExecutor:
@@ -178,6 +166,29 @@ class MeshExecutor:
         #: ranks that hold each row
         self.rep = self.size // self.n_row_shards
 
+    def moe_rows(self):
+        """The MoE's :class:`~repro_torch.parallel.split.MoERows` for the
+        current rows: the row group, and the capacity split of the rules'
+        ``moe_buf`` placement (none with ``split=False``: every rank then
+        computes the whole capacity)."""
+        rows = Group(self.row_group, self.n_row_shards, self.row_index) \
+            if self.row_group is not None else None
+        return MoERows(rows, self._capacity_group if self.split
+                       else lambda E, C: None)
+
+    def _capacity_group(self, E: int, C: int):
+        """The :class:`~repro_torch.parallel.split.Group` over which the
+        reference's ``moe_buf`` rule splits a capacity of ``C`` rows of
+        ``E`` experts (None: whole)."""
+        entry = self.rules.moe_spec("moe_buf", (E, C, 1))[1]
+        if entry is None:
+            return None
+        dims = tuple(self.names.index(a) for a in
+                     ((entry,) if isinstance(entry, str) else entry))
+        group = self.group(dims)
+        return Group(group, math.prod(self.mesh.size(d) for d in dims),
+                     dist.get_rank(group))
+
     def row_placements(self):
         return [Shard(0) if i in self.row_dims else Replicate()
                 for i in range(self.mesh.ndim)]
@@ -191,13 +202,6 @@ class MeshExecutor:
         return {k: self.rows_of(v) if isinstance(v, DTensor) else
                 v.chunk(self.n_row_shards, dim=0)[self.row_index]
                 for k, v in batch.items()}
-
-    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """The rows of all ranks (the whole batch), with autograd."""
-        if self.row_group is None:
-            return x
-        return _GatherRows.apply(x, self.row_group, self.n_row_shards,
-                                 self.row_index)
 
     def own_rows(self, y: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a whole-batch tensor."""
@@ -226,17 +230,18 @@ class MeshExecutor:
         return DTensor.from_local(logits, self.mesh, pl, run_check=False)
 
     def place_caches(self, caches, dims):
-        """Caches of this rank's rows, each tensor split over ``model``
-        along ``dims`` (None: whole), as ``DTensor``s placed by the rules'
-        cache specs: each is cut or gathered over ``model`` to its spec's
-        split."""
+        """Caches of this rank's rows, each tensor held over ``model`` as
+        its layout in ``dims`` says (None: whole;
+        :meth:`~repro_torch.parallel.split.ModelSplit.relayout`), as
+        ``DTensor``s placed by the rules' cache specs: each is cut or
+        gathered over ``model`` to its spec's split."""
         ac = self._split
 
         def whole(t, d):  # the whole tensor's shape, for its spec
             shape = list(t.shape)
             shape[0] *= self.n_row_shards
-            if d is not None:
-                shape[d] *= ac.n
+            for dim, ways in levels(d, ac.n):
+                shape[dim] *= ways
             return types.SimpleNamespace(shape=tuple(shape), ndim=t.ndim)
         specs = self.rules.cache_specs([
             {n: whole(t, d[n]) for n, t in c.items()}
@@ -312,7 +317,8 @@ class MeshExecutor:
         in ``names``, where given) are gathered from their shards with the
         gradient's reduction attached: whole, or this rank's block of
         their ``model`` split where the compute is split (unless their
-        module is marked ``whole``)."""
+        module's ``whole(n)`` names them: the parameters its layer needs
+        whole on a split of ``n`` ranks)."""
         items = [(module, n) for n in names] if names is not None else \
             [(m, n) for m in module.modules() for n in m._parameters]
         saved = []
@@ -322,9 +328,10 @@ class MeshExecutor:
                 if isinstance(p, DTensor):
                     saved.append((m, n, p))
                     pl = tuple(p.placements)
+                    whole = getattr(m, "whole", None)
                     keep = self.tp_dim if (
                         self._split is not None
-                        and not getattr(m, "whole", False)
+                        and not (whole and n in whole(self._split.n))
                         and isinstance(pl[self.tp_dim], Shard)) else None
                     m._parameters[n] = _Gather.apply(p.to_local(), self, pl,
                                                      keep)

@@ -248,6 +248,26 @@ class MeshRules:
             return self.tp
         return None
 
+    def moe_spec(self, kind: str, shape: Tuple[int, ...]) -> Spec:
+        """How the reference's ``ac`` constraint ``kind`` places a MoE
+        buffer of ``shape`` (``src/repro/parallel/sharding.py``, the
+        ``moe_*`` kinds): the global dispatch's ``moe_buf`` / ``moe_hidden``
+        ``[E, C, D or F]`` put the experts over ``ep`` and, where ``ep`` is
+        None (expert-TP), the capacity over the fsdp axes that divide it
+        (``F`` over ``tp``); the grouped dispatch's ``moe_buf4`` /
+        ``moe_hidden4`` ``[B, E, C, D or F]`` keep each row's buffer on the
+        ranks of its rows.  Where ``ep`` is ``model`` the capacity stays
+        whole, a ``model`` of one rank included."""
+        ep = self._ep_axis(shape[-3])
+        f = None if ep == self.tp else self._fit(shape[-1], self.tp)
+        if kind in ("moe_buf", "moe_hidden"):
+            c = self._fit(shape[1], self.fsdp) if ep is None else None
+            return (ep, c, f if kind == "moe_hidden" else None)
+        if kind in ("moe_buf4", "moe_hidden4"):
+            return (self._fit(shape[0], self.fsdp), ep, None,
+                    f if kind == "moe_hidden4" else None)
+        raise ValueError(f"not a MoE constraint: {kind!r}")
+
     def opt_specs(self, param_specs):
         return {"m": param_specs, "v": param_specs, "count": ()}
 

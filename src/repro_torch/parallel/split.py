@@ -25,6 +25,18 @@ rows of ``embed`` and columns of ``lm_head``), and the layers call:
 The logits stay split over the vocab (the reference's default
 ``shard_logits``; the port has no whole-logits variant).
 
+A tensor that the ``model`` ranks hold in blocks has a *layout*
+(:meth:`ModelSplit.relayout`): None (whole), a dim ``d`` (``n`` blocks
+along ``d``, block ``index`` on this rank), or a tuple of ``(dim,
+ways)`` levels, major first, whose blocks the ranks take in order, each
+block on ``n / prod(ways)`` neighbouring ranks (the mLSTM's heads and
+value columns, the sLSTM's heads repeated where ``n`` exceeds them).
+
+:class:`MoERows` is the MoE's view of the mesh's fsdp axes: the ranks
+whose rows make up the batch (the global dispatch ranks the whole batch),
+and the ranks over which the reference's ``moe_buf`` rule splits the
+capacity of an ``[E, C, D]`` buffer.
+
 Gradients.  Each rank's loss share is its rows' loss over the number of
 ranks holding those rows (the executor's convention), so the shares of
 all ranks add up to the loss; a collective's backward is then its adjoint
@@ -38,7 +50,8 @@ its fsdp dims only, and every other over ``model`` too.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -107,7 +120,31 @@ def _reduce_scatter(x, dim, group, n):
     return out.movedim(0, dim)
 
 
-class ModelSplit:
+class Group:
+    """A process group of ``n`` ranks and this rank's ``index`` in it,
+    with the collectives the layers take over it."""
+
+    def __init__(self, group, n: int, index: int):
+        self.group, self.n, self.index = group, n, index
+
+    def gather(self, t, dim: int):
+        """``t``'s blocks of every rank, concatenated along ``dim``."""
+        return _AllGather.apply(t, dim % t.dim(), self.group, self.n)
+
+    def own(self, t, dim: int):
+        """This rank's block of a whole ``t`` along ``dim`` (a view)."""
+        return t.chunk(self.n, dim=dim)[self.index]
+
+    def sum(self, t):
+        """The sum of ``t`` over the ranks, on every rank."""
+        return _AllReduce.apply(t, self.group)
+
+
+#: a layout of a tensor over the ``model`` ranks (see the module's text)
+Layout = Union[None, int, Tuple[Tuple[int, int], ...]]
+
+
+class ModelSplit(Group):
     """The ``model`` dim's process group, its size ``n`` and this rank's
     ``index`` on it, and whether the residual is split over the sequence
     (``seq``: ``pcfg.seq_shard`` and a length that ``n`` divides, set by
@@ -115,7 +152,7 @@ class ModelSplit:
 
     def __init__(self, group, n: int, index: int, seq_shard: bool,
                  seq: bool = False):
-        self.group, self.n, self.index = group, n, index
+        super().__init__(group, n, index)
         self.seq_shard, self.seq = seq_shard, seq
 
     def at(self, seq_len: int) -> "ModelSplit":
@@ -130,18 +167,6 @@ class ModelSplit:
         return self.gather(x, 1) if self.seq else x
 
     # -- collectives -----------------------------------------------------
-    def gather(self, t, dim: int):
-        """``t``'s blocks of every rank, concatenated along ``dim``."""
-        return _AllGather.apply(t, dim % t.dim(), self.group, self.n)
-
-    def own(self, t, dim: int):
-        """This rank's block of a whole ``t`` along ``dim`` (a view)."""
-        return t.chunk(self.n, dim=dim)[self.index]
-
-    def sum(self, t):
-        """The sum of ``t`` over the ranks, on every rank."""
-        return _AllReduce.apply(t, self.group)
-
     def sum_seq(self, t):
         """A row-parallel product's partial sums ``[B, S, D]`` added over
         the ranks: whole, or this rank's slice of the sequence under
@@ -156,14 +181,16 @@ class ModelSplit:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t
 
-    def relayout(self, t, have: Optional[int], want: Optional[int]):
-        """``t`` split over the ranks along ``have`` (None: whole) ->
-        split along ``want``."""
-        if have == want:
+    def relayout(self, t, have: Layout, want: Layout):
+        """``t`` held under layout ``have`` -> under ``want``: gathered
+        whole over ``model`` (unless it is whole), then this rank's
+        block."""
+        if levels(have, self.n) == levels(want, self.n):
             return t
-        if have is not None:
-            t = self.gather(t, have)
-        return t if want is None else self.own(t, want)
+        if levels(have, self.n):
+            t = assemble(list(self.gather(t.unsqueeze(0), 0).unbind(0)),
+                         have, self.n)
+        return block(t, want, self.n, self.index)
 
     def argmax(self, logits):
         """The greedy pick over a vocab split over the ranks: each rank's
@@ -176,3 +203,56 @@ class ModelSplit:
         idxs = self.gather(idx.contiguous(), -1)
         best = vals.argmax(dim=-1, keepdim=True)              # first max
         return idxs.gather(-1, best)[..., 0]
+
+
+def levels(layout: Layout, n: int) -> Tuple[Tuple[int, int], ...]:
+    """``layout``'s ``(dim, ways)`` levels over ``n`` ranks (none:
+    whole)."""
+    if layout is None:
+        return ()
+    return ((layout, n),) if isinstance(layout, int) else tuple(layout)
+
+
+def block(t, layout: Layout, n: int, index: int):
+    """The block of a whole ``t`` that rank ``index`` of ``n`` holds under
+    ``layout`` (a view)."""
+    lv = levels(layout, n)
+    i = index // (n // math.prod(w for _, w in lv))
+    for j, (dim, ways) in enumerate(lv):
+        t = t.chunk(ways, dim=dim)[
+            i // math.prod(w for _, w in lv[j + 1:]) % ways]
+    return t
+
+
+def assemble(blocks: Sequence[torch.Tensor], layout: Layout, n: int):
+    """The whole tensor from the ``n`` ranks' blocks under ``layout``, in
+    rank order (a block that several ranks hold is taken once)."""
+    lv = levels(layout, n)
+    if not lv:
+        return blocks[0]
+    return _assemble(blocks[::n // math.prod(w for _, w in lv)], lv)
+
+
+def _assemble(pieces: Sequence[torch.Tensor], lv) -> torch.Tensor:
+    if not lv:
+        return pieces[0]
+    (dim, ways), rest = lv[0], lv[1:]
+    m = len(pieces) // ways
+    return torch.cat([_assemble(pieces[j * m:(j + 1) * m], rest)
+                      for j in range(ways)], dim=dim)
+
+
+class MoERows:
+    """The MoE's view of the fsdp axes: ``rows``, the :class:`Group` of the
+    ranks whose rows make up the batch, in order (None: every rank holds
+    every row), and :meth:`capacity`, the :class:`Group` over which the
+    reference's ``moe_buf`` rule splits the capacity of a buffer ``[E, C,
+    D]`` (None: whole on every rank).  The executor makes one per batch
+    (:meth:`~repro_torch.parallel.executor.MeshExecutor.moe_rows`)."""
+
+    def __init__(self, rows: Optional[Group],
+                 capacity: Callable[[int, int], Optional[Group]]):
+        self.rows, self._capacity = rows, capacity
+
+    def capacity(self, E: int, C: int) -> Optional[Group]:
+        return self._capacity(E, C)

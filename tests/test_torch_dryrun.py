@@ -11,10 +11,11 @@ gives for the same collectives written as HLO.
 The dry run runs in subprocesses (a process's world is fixed) on fake
 ``(2, 4)`` and ``(16, 16)`` meshes with smoke configs, every tensor on
 ``meta``: each rank's state bytes equal the reference's analytic formula
-and its ``DTensor`` blocks' bytes; where every split divides (whisper and
-recurrentgemma on ``(2, 4)``, a 16-head llama on ``(16, 16)``), the
-per-device FLOPs times the ranks are within 5% of the one-device count of
-the same step, and with the split off they are not.  ``repro.launch.
+and its ``DTensor`` blocks' bytes; where every split divides (whisper,
+recurrentgemma, granite with 6 experts, whose capacity splits over
+``data``, and xlstm-125m's heads on ``(2, 4)``, a 16-head llama on
+``(16, 16)``), the per-device FLOPs times the ranks are within 5% of the
+one-device count of the same step, and with the split off they are not.  ``repro.launch.
 dryrun`` is never imported here: its first lines set ``XLA_FLAGS``.
 """
 import json
@@ -218,6 +219,7 @@ import json, sys
 import torch
 import torch.distributed as dist
 from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs.base import MoECfg, ShapeCfg
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_test_mesh
 
@@ -228,6 +230,10 @@ dist.init_process_group("fake", store=FakeStore(), rank=0,
 mesh = make_test_mesh(shape)
 out = []
 for arch, cell, over, ratio in cases:
+    # a shape of its own: [name, seq_len, global_batch, kind]
+    cell = cell if isinstance(cell, str) else ShapeCfg(*cell)
+    if over and "moe" in over:
+        over = dict(over, moe=MoECfg(**over["moe"]))
     r = dryrun.lower_cell(arch, cell, False, mesh=mesh, smoke=True,
                           cfg_overrides=over)
     row = {k: r[k] for k in ("status", "n_chips", "hlo_flops",
@@ -246,12 +252,21 @@ print(json.dumps(out))
 
 #: a llama whose heads, kv heads, FFN and vocab divide 16
 LLAMA16 = {"d_model": 128, "n_heads": 16, "n_kv_heads": 16, "d_ff": 256}
+#: granite with 6 experts, which a model of 4 does not divide (expert-TP,
+#: the capacity split over data), and heads that it divides
+GRANITE6 = {"moe": {"n_experts": 6, "top_k": 4, "d_ff_expert": 32},
+            "n_heads": 8, "n_kv_heads": 4}
+#: xlstm-125m's smoke model trained on 4 rows of 64 steps: its per-step
+#: mLSTM and sLSTM loops traced on meta in a few seconds
+XLSTM_TRAIN = ["xlstm_train", 64, 4, "train"]
 #: (mesh, [(arch, shape, cfg overrides, FLOP-ratio check)])
 DRYRUN_CASES = (
     ((2, 4), [("whisper-large-v3", "train_4k", None, True),
               ("recurrentgemma-2b", "train_4k", None, True),
               ("llama3.2-3b", "decode_32k", None, False),
-              ("granite-moe-3b-a800m", "train_4k", None, False)]),
+              ("granite-moe-3b-a800m", "train_4k", None, False),
+              ("granite-moe-3b-a800m", "train_4k", GRANITE6, True),
+              ("xlstm-125m", XLSTM_TRAIN, None, True)]),
     ((16, 16), [("llama3.2-3b", "train_4k", LLAMA16, True),
                 ("granite-moe-3b-a800m", "decode_32k", None, False),
                 ("recurrentgemma-2b", "prefill_32k", None, False),

@@ -51,6 +51,22 @@ held against the one-device port, at the reference's cross-mesh bar
     split of the whole, and one decode step's collective bytes (counted by
     ``repro_torch.launch.hlo_analysis``) are the same at two cache
     lengths: no cache moves per token.
+(i) the rest of the split: granite with 5 experts (``model`` 2 does not
+    divide them: expert-TP, and the reference's ``moe_buf`` rule splits
+    the capacity over ``data``) takes steps on ``(2, 2)`` (and with two
+    microbatches), each rank's grouped matmuls on half the capacity rows,
+    the live rows of the two data ranks' slices adding up to the
+    one-device run's call by call, and on ``(4, 1)`` (EP over a ``model``
+    of one rank: the capacity whole), its expert choices identical; the
+    grouped dispatch on ``(2, 2)`` and ``(4, 1)`` with no row gathered at
+    the MoE (the counter sees only ``model``'s sum of the expert outputs),
+    its load-balancing loss within ``AUX_RTOL`` of one device's; xlstm-125m
+    on ``(1, 4)`` with its 4 heads (a head a rank) and with 2 (each
+    mLSTM head's value columns halved over 2 ranks, the sLSTM's head
+    repeated on them) takes steps and decodes greedily, tokens equal,
+    each rank's state bytes its spec's split.  All at ``SPLIT_RTOL``; a
+    capacity slice filled without its offset and a grouped aux loss of
+    local statistics only fall outside the bars.
 The host copies, checkpoints and resizes of (a) and (b) have one writer:
 rank 0 holds the whole state on the host, every other rank only its own
 blocks; the checkpoint written on ``(2, 2)`` reads back bit-equal in both
@@ -73,6 +89,7 @@ from repro.models import init_params as jax_init_params
 from repro.optim import adamw_init as jax_adamw_init
 from repro.parallel.sharding import MeshRules as RefMeshRules
 from repro_torch.configs.base import ParallelCfg
+from repro_torch.launch.hlo_analysis import ring_bytes
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_mesh_ranks as ranks  # noqa: E402
@@ -92,6 +109,10 @@ SPLIT_RTOL = {"grad_norm": 1e-6, "params": 3e-3, "m": 3e-5, "v": 3e-5}
 #: (h)'s bar on the f32 logits: 10x the largest difference measured
 #: (3.0e-6, on logits of magnitude 3-5)
 SPLIT_LOGIT_ATOL = 3e-5
+#: (i)'s bar on the MoE load-balancing loss, relative: 10x the largest
+#: difference measured from the one-device run (1.2e-7: the grouped
+#: dispatch's probability sums added over the ranks)
+AUX_RTOL = 1e-6
 #: seconds the four ranks may take, spawn included
 JOIN_TIMEOUT = 300
 
@@ -303,3 +324,96 @@ def test_mesh_checkpoint_reads_back_in_both_packages(mesh_dir):
     assert sorted(flat) == sorted(want) and len(flat) > 0
     for key, leaf in flat.items():
         assert np.array_equal(np.asarray(leaf), want[key].numpy()), key
+
+
+MOE_IDS = [f"{impl}-{'x'.join(map(str, m))}{''.join(f'-{k}' for k in kw)}"
+           for impl, m, kw in ranks.MOE_STEPS]
+
+
+def _aux_close(c) -> bool:
+    return len(c["aux"]) == len(c["want_aux"]) > 0 and all(
+        abs(g - w) <= AUX_RTOL * abs(w)
+        for g, w in zip(c["aux"], c["want_aux"]))
+
+
+@pytest.mark.parametrize("i", range(len(MOE_IDS)), ids=MOE_IDS)
+def test_moe_capacity_and_rows_split_as_the_reference(mesh_results, i):
+    """(i): the global MoE on its capacity slice where the reference's rule
+    splits it (whole where it does not), the grouped MoE on its own rows,
+    each held to the one-device steps."""
+    impl, shape, _ = ranks.MOE_STEPS[i]
+    split = impl == "global" and shape[1] > 1   # expert-TP: C over data
+    for r, res in enumerate(mesh_results):
+        c = res["rest_moe"][i]
+        assert _close(c["losses"], c["want"]), (r, c)
+        assert not _split_bad(c), (r, _split_bad(c))
+        assert not c["bad_shape"] and not c["bad_bits"], (r, c)
+        _assert_one_writer(r, c)
+        assert _aux_close(c), (r, c["aux"], c["want_aux"])
+        coll = c["moe_coll"]
+        assert len(coll) > 0
+        if impl == "global":
+            assert c["n_routings"] > 0 and c["same_experts"], (r, c)
+            rows = c["capacity"] // (shape[0] if split else 1)
+            assert c["buf_rows"] == [rows], (r, c["buf_rows"], rows)
+            # the router logits and the rows gathered; the output slices
+            # too where the capacity splits
+            assert all(k["count_all-gather"] == 2 + split for k in coll), \
+                (r, coll)
+        else:
+            # no row leaves its rank: the only collective is model's sum
+            # of the expert outputs (expert-TP), none on a model of one
+            want = {} if shape[1] == 1 else {
+                "all-reduce": ring_bytes("all-reduce",
+                                         c["grouped_out_bytes"], shape[1])}
+            assert all({k: v for k, v in k_.items() if k in
+                        ("all-reduce", "all-gather", "reduce-scatter",
+                         "all-to-all")} == want for k_ in coll), (r, coll)
+    # no live row dropped and no dead row computed: the live rows of the
+    # ranks that hold one model index's slices add up to one device's
+    held = [r for r in range(ranks.WORLD) if r % shape[1] == 0]
+    got = [mesh_results[r]["rest_moe"][i]["live"] for r in held]
+    want = mesh_results[0]["rest_moe"][i]["want_live"]
+    if impl == "global":
+        parts = got if split else got[:1]
+        assert [sum(x) for x in zip(*parts)] == want
+    else:
+        assert sum(map(sum, got)) == sum(want)
+
+
+@pytest.mark.parametrize("i", range(2), ids=["unoffset_slice", "local_aux"])
+def test_planted_moe_faults_fall_outside_the_bars(mesh_results, i):
+    """(i)'s planted faults: every capacity slice filled as the first (its
+    counts and rows not offset) moves the losses; a grouped aux loss from
+    each rank's own statistics moves the aux loss (its 0.01 weight keeps
+    the loss itself within the loss bar); both move the state."""
+    for r, res in enumerate(mesh_results):
+        c = res["rest_faults"][i]
+        assert c["name"] == ("unoffset_slice", "local_aux")[i]
+        if i == 0:
+            assert not _close(c["losses"], c["want"]), (r, c)
+        else:
+            assert not _aux_close(c), (r, c["aux"], c["want_aux"])
+        assert {"params", "m", "v"} <= {b[0] for b in _split_bad(c)}, (r, c)
+
+
+@pytest.mark.parametrize("i", range(len(ranks.XLSTM_CASES)),
+                         ids=["4heads", "2heads"])
+def test_xlstm_splits_over_model(mesh_results, i):
+    """(i): xlstm-125m's mixers split over a model of 4: each mLSTM call on
+    one head's value columns (all 32 of a head of 32, or 32 of 64), each
+    sLSTM loop on one head; steps and greedy decoding as one device."""
+    for r, res in enumerate(mesh_results):
+        c = res["rest_xlstm"][i]
+        assert c["mlstm_heads"] == [[1, 32]], (r, c["mlstm_heads"])
+        assert c["slstm_cols"] == [(16, 32)[i]], (r, c["slstm_cols"])
+        assert _close(c["losses"], c["want"]), (r, c)
+        assert not _split_bad(c), (r, _split_bad(c))
+        assert not c["bad_shape"] and not c["bad_bits"], (r, c)
+        _assert_one_writer(r, c)
+        s = c["serving"]
+        assert s["same_tokens"], (r, s)
+        assert len(s["errs"]) == ranks.DECODE_STEPS + 1
+        assert max(s["errs"]) <= SPLIT_LOGIT_ATOL, (r, s)
+        assert all(local == split for local, split in s["cache_bytes"]), \
+            (r, s["cache_bytes"])

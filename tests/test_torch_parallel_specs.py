@@ -141,6 +141,41 @@ def test_specs_equal_the_reference(arch, ref_abstract, monkeypatch):
             assert (None,) + spec == node[leaf], key
 
 
+#: MoE buffers (kind, shape): granite's 40 experts and mixtral's 8, whose
+#: capacities 1024 and 20480 divide every fsdp size here, 1000 and 40 that
+#: divide some or none; d_model 1536 and 6144, d_ff 512 and 16384
+MOE_BUFFERS = [(k, s) for E, C, D, F in ((40, 1024, 1536, 512),
+                                         (40, 1000, 1536, 512),
+                                         (8, 20480, 6144, 16384),
+                                         (8, 40, 6144, 16384))
+               for k, s in (("moe_buf", (E, C, D)), ("moe_hidden", (E, C, F)),
+                            ("moe_buf4", (32, E, C, D)),
+                            ("moe_hidden4", (24, E, C, F)))]
+
+
+def test_moe_placement_is_the_references(monkeypatch):
+    """``MeshRules.moe_spec`` places each MoE buffer as the reference's
+    ``ac`` constraint does (its sharding constraint read back as a spec)
+    on every mesh, for experts that divide ``model`` and that do not."""
+    monkeypatch.setattr(jax.lax, "with_sharding_constraint",
+                        lambda x, spec: tuple(spec))
+    rcfg, cfg = (ref_configs.get_config("granite-moe-3b-a800m"),
+                 configs.get_config("granite-moe-3b-a800m"))
+    for shape, axes in MESHES:
+        ref = ref_sharding.MeshRules(rcfg, ref_sharding.ParallelCfg(),
+                                     types.SimpleNamespace(
+                                         axis_names=axes,
+                                         devices=np.empty(shape)))
+        ref.shd = lambda spec: spec
+        port = MeshRules(cfg, default_parallel(cfg, SHAPES["train_4k"]),
+                         types.SimpleNamespace(mesh_dim_names=axes,
+                                               shape=shape))
+        for kind, buf in MOE_BUFFERS:
+            want = ref.ac(types.SimpleNamespace(ndim=len(buf), shape=buf),
+                          kind)
+            assert port.moe_spec(kind, buf) == want, (shape, kind, buf)
+
+
 def _shape_dtype(x):
     return tuple(x.shape), str(x.dtype).replace("torch.", "")
 

@@ -7,6 +7,7 @@ stays cheap.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import hashlib
 import json
@@ -66,6 +67,18 @@ SPLIT_SERVING = (("llama3.2-3b", (1, 4), "heads"),
                  ("whisper-large-v3", (1, 4), "heads"),
                  ("whisper-large-v3", (2, 2), "seq"))
 PROMPT, DECODE_STEPS, CACHE_LENS = 16, 3, (20, 40)
+#: (i): granite with 5 experts, which a ``model`` of 2 does not divide
+#: (expert-TP: the reference splits the capacity over ``data``) and one of
+#: 1 does (EP over a ``model`` of one rank: the capacity stays whole)
+MOE5 = {"n_experts": 5}
+#: (i)'s MoE steps: (moe_impl, mesh, pcfg overrides)
+MOE_STEPS = (("global", (2, 2), {}), ("global", (4, 1), {}),
+             ("global", (2, 2), {"grad_accum": 2}),
+             ("grouped", (2, 2), {}), ("grouped", (4, 1), {}))
+#: (i)'s xlstm-125m steps and decoding on (1, 4): its 4 heads (a head a
+#: rank), and 2 heads (each on 2 ranks: the mLSTM's value columns halved,
+#: the sLSTM repeated); the decode's caches split by heads and by "seq"
+XLSTM_CASES = (({}, "heads"), ({"n_heads": 2}, "seq"))
 
 
 def _pcfg(**kw) -> ParallelCfg:
@@ -285,52 +298,199 @@ def check_split_serving(out: dict) -> None:
     rank's cache bytes between steps against its split of the whole, and
     one decode step's collective bytes at two cache lengths."""
     for arch, shape, kv in SPLIT_SERVING:
-        cfg = configs.get_smoke_config(arch)
-        rules = MeshRules(cfg, _pcfg(kv_shard=kv), make_test_mesh(shape))
-        model = Model(cfg, generator=torch.Generator().manual_seed(3),
-                      device="cpu")
-        batch = serve.make_batch(cfg, 4, PROMPT, 0, torch.device("cpu"), 20)
-        # one device: greedy tokens, each step's logits
-        logits, caches = model.prefill(batch, cache_len=CACHE_LENS[0])
-        want, toks = [logits], [logits[:, -1].argmax(-1)[:, None]]
+        out["split_serving"].append(_split_decode(
+            configs.get_smoke_config(arch), shape, kv, CACHE_LENS))
+
+
+def _split_decode(cfg, shape, kv: str, cache_lens) -> dict:
+    """(h)'s prefill and decode steps of ``cfg`` on a mesh of ``shape``
+    with caches split by ``kv``, at each of ``cache_lens``."""
+    rules = MeshRules(cfg, _pcfg(kv_shard=kv), make_test_mesh(shape))
+    model = Model(cfg, generator=torch.Generator().manual_seed(3),
+                  device="cpu")
+    batch = serve.make_batch(cfg, 4, PROMPT, 0, torch.device("cpu"), 20)
+    # one device: greedy tokens, each step's logits
+    logits, caches = model.prefill(batch, cache_len=cache_lens[0])
+    want, toks = [logits], [logits[:, -1].argmax(-1)[:, None]]
+    for i in range(DECODE_STEPS):
+        logits, caches = model.decode_step(toks[-1], caches, PROMPT + i)
+        want.append(logits)
+        toks.append(logits[:, -1].argmax(-1)[:, None])
+    ex = MeshExecutor(rules)
+    ex.shard_model(model)
+    case = dict(arch=cfg.name, mesh=list(shape), kv=kv, errs=[], scale=[],
+                same_tokens=True, cache_bytes=[], coll=[])
+    step = make_serve_step(cfg, rules)
+    for n_cache in cache_lens:
+        logits, mc = make_prefill_step(cfg, rules, n_cache)(model, batch)
+        got = [logits]
         for i in range(DECODE_STEPS):
-            logits, caches = model.decode_step(toks[-1], caches, PROMPT + i)
-            want.append(logits)
-            toks.append(logits[:, -1].argmax(-1)[:, None])
-        ex = MeshExecutor(rules)
-        ex.shard_model(model)
-        case = dict(arch=arch, mesh=list(shape), kv=kv, errs=[], scale=[],
-                    same_tokens=True, cache_bytes=[], coll=[])
-        step = make_serve_step(cfg, rules)
-        for n_cache in CACHE_LENS:
-            logits, mc = make_prefill_step(cfg, rules, n_cache)(model, batch)
-            got = [logits]
-            for i in range(DECODE_STEPS):
-                specs = rules.cache_specs([{n: torch.empty(
-                    t.shape, dtype=t.dtype, device="meta")
-                    for n, t in c.items()} for c in mc])
-                flat = {(j, n): t for j, c in enumerate(mc)
-                        for n, t in c.items()}
-                case["cache_bytes"].append([
-                    dryrun.local_bytes(flat),
-                    dryrun.analytic_bytes_per_device(
-                        flat, {(j, n): s for j, c in enumerate(specs)
-                               for n, s in c.items()},
-                        rules.axis_size)])
-                counter = OpCounter(WORLD)
-                with counter:
-                    logits, mc = step(model, toks[i], mc, PROMPT + i)
-                got.append(logits)
-                if i == 0:
-                    case["coll"].append(counter.coll.get("total", 0.0))
-            if n_cache != CACHE_LENS[0]:
-                continue
-            for g, w, t in zip(got, want, toks):
-                case["errs"].append(float((g.full_tensor() - w).abs().max()))
-                case["scale"].append(float(w.abs().max()))
-                case["same_tokens"] &= torch.equal(
-                    ex.greedy(g), ex.own_rows(t))
-        out["split_serving"].append(case)
+            specs = rules.cache_specs([{n: torch.empty(
+                t.shape, dtype=t.dtype, device="meta")
+                for n, t in c.items()} for c in mc])
+            flat = {(j, n): t for j, c in enumerate(mc)
+                    for n, t in c.items()}
+            case["cache_bytes"].append([
+                dryrun.local_bytes(flat),
+                dryrun.analytic_bytes_per_device(
+                    flat, {(j, n): s for j, c in enumerate(specs)
+                           for n, s in c.items()},
+                    rules.axis_size)])
+            counter = OpCounter(WORLD)
+            with counter:
+                logits, mc = step(model, toks[i], mc, PROMPT + i)
+            got.append(logits)
+            if i == 0:
+                case["coll"].append(counter.coll.get("total", 0.0))
+        if n_cache != cache_lens[0]:
+            continue
+        for g, w, t in zip(got, want, toks):
+            case["errs"].append(float((g.full_tensor() - w).abs().max()))
+            case["scale"].append(float(w.abs().max()))
+            case["same_tokens"] &= torch.equal(
+                ex.greedy(g), ex.own_rows(t))
+    return case
+
+
+def _moe_cfg(impl: str):
+    cfg = configs.get_smoke_config("granite-moe-3b-a800m")
+    return dataclasses.replace(cfg, moe_impl=impl, moe=dataclasses.replace(
+        cfg.moe, **MOE5))
+
+
+class _Recorded:
+    """Records what ``layers.<name>`` returns (``take`` of its result) at
+    every call, while active."""
+
+    def __init__(self, name: str, take):
+        self.name, self.take, self.seen = name, take, []
+
+    def __enter__(self):
+        self._real = real = getattr(layers, self.name)
+
+        def spy(*args, **kw):
+            out = real(*args, **kw)
+            self.seen.append(self.take(args, out))
+            return out
+        setattr(layers, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(layers, self.name, self._real)
+
+
+def _moe_collectives(tr: Trainer) -> list:
+    """The collective bytes of each MoE layer of one forward pass of
+    ``tr``'s model on its first batch, counted by
+    ``repro_torch.launch.hlo_analysis``, and the bytes of the MoE's expert
+    outputs that this rank hands to its collective."""
+    seen, real = [], layers.moe_ffn
+
+    def counted(x, p, cfg, ac=None, rows=None):
+        counter = OpCounter(WORLD)
+        with counter:
+            y = real(x, p, cfg, ac, rows)
+        seen.append(dict(counter.coll))
+        return y
+    ex = tr.executor
+    batch = ex.local_batch(tr.rules.constrain_batch(tr.data.batch_at(0)))
+    layers.moe_ffn = counted
+    try:
+        with torch.no_grad():
+            tr.model.train_terms(batch, remat=False)
+    finally:
+        layers.moe_ffn = real
+    return seen
+
+
+def _unoffset_dispatch(x, r, K, e0, El, c0, Cl):
+    """The planted fault: a capacity slice's counts (and rows) not offset
+    by its first row ``c0``: every slice filled as the first."""
+    return _REAL_DISPATCH(x, r, K, e0, El, 0, Cl)
+
+
+_REAL_DISPATCH = layers._dispatch
+
+
+def _local_aux(x, p, cfg, rows=None):
+    """The planted fault: the load-balancing loss from this rank's rows'
+    statistics only."""
+    return _REAL_AUX(x, p, cfg)
+
+
+_REAL_AUX = layers.moe_aux_loss
+
+
+def check_rest_of_split(out: dict) -> None:
+    """(i) the MoE's capacity over the fsdp axes, the grouped MoE with its
+    rows kept local, and xlstm-125m's mixers split over ``model``, against
+    the one-device runs; then the two planted faults."""
+    one = {}
+    for impl, shape, kw in MOE_STEPS:
+        cfg = _moe_cfg(impl)
+        key = (impl, tuple(sorted(kw.items())))
+        aux_of = lambda a, y: float(y.detach())  # noqa: E731
+        # each grouped matmul's rows and live rows (the sum of its counts)
+        gmm_of = lambda a, y: (a[0].shape[-2], int(a[2].sum()))  # noqa
+        if key not in one:
+            with _Recorded("moe_aux_loss", aux_of) as aux, \
+                    _Recorded("moe_gmm", gmm_of) as gmm:
+                one[key] = _one_device(cfg, STEPS, _pcfg(**kw))
+            one[key].update(aux=aux.seen, live=[n for _, n in gmm.seen])
+        tr = Trainer(cfg, SHAPE, make_test_mesh(shape), pcfg=_pcfg(**kw),
+                     seed=1)
+        tr.init_state()
+        with _Recorded("moe_aux_loss", aux_of) as aux, \
+                _Recorded("moe_gmm", gmm_of) as gmm:
+            case = _compared(tr, STEPS, one[key])
+        T = SHAPE.global_batch * SHAPE.seq_len // kw.get("grad_accum", 1)
+        # the grouped dispatch's expert outputs on this rank: its rows'
+        # buffers [B, E, C, D] in f32
+        C4 = math.ceil(SHAPE.seq_len * cfg.moe.top_k / cfg.moe.n_experts
+                       * cfg.moe.capacity_factor)
+        out["rest_moe"].append(dict(
+            impl=impl, mesh=list(shape), kw=kw, **case, **_state_report(tr),
+            aux=aux.seen, want_aux=one[key]["aux"],
+            buf_rows=sorted({r for r, _ in gmm.seen}),
+            live=[n for _, n in gmm.seen], want_live=one[key]["live"],
+            capacity=layers.global_capacity(T, cfg),
+            grouped_out_bytes=4 * (SHAPE.global_batch // shape[0])
+            * cfg.moe.n_experts * C4 * cfg.d_model,
+            moe_coll=_moe_collectives(tr)))
+    faults = (("unoffset_slice", "global", "_dispatch", _unoffset_dispatch),
+              ("local_aux", "grouped", "moe_aux_loss", _local_aux))
+    for name, impl, attr, fault in faults:
+        cfg = _moe_cfg(impl)
+        tr = Trainer(cfg, SHAPE, make_test_mesh((2, 2)), pcfg=_pcfg(), seed=1)
+        tr.init_state()
+        real = getattr(layers, attr)
+        setattr(layers, attr, fault)
+        try:
+            with _Recorded("moe_aux_loss", aux_of) as aux:
+                case = _compared(tr, STEPS, one[(impl, ())])
+        finally:
+            setattr(layers, attr, real)
+        out["rest_faults"].append(dict(name=name, **case, aux=aux.seen,
+                                       want_aux=one[(impl, ())]["aux"]))
+    for over, kv in XLSTM_CASES:
+        cfg = dataclasses.replace(configs.get_smoke_config("xlstm-125m"),
+                                  **over)
+        want = _one_device(cfg, STEPS)
+        tr = Trainer(cfg, SHAPE, make_test_mesh((1, 4)), pcfg=_pcfg(),
+                     seed=1)
+        tr.init_state()
+        # the heads and value columns of each mLSTM call, the columns of
+        # each sLSTM loop
+        with _Recorded("_mlstm_inputs", lambda a, y: list(y[2].shape[2:])
+                       ) as ml, \
+                _Recorded("slstm_share", lambda a, y: y[1]["h"].shape[-1]
+                          ) as sl:
+            case = dict(over=over, **_compared(tr, STEPS, want),
+                        **_state_report(tr))
+        case.update(mlstm_heads=sorted(set(map(tuple, ml.seen))),
+                    slstm_cols=sorted(set(sl.seen)))
+        case["serving"] = _split_decode(cfg, (1, 4), kv, CACHE_LENS[:1])
+        out["rest_xlstm"].append(case)
 
 
 def check_elastic(out: dict, ckpt: Path) -> None:
@@ -465,12 +625,14 @@ def main(rank: int, store_path: str, out_dir: str) -> None:
                             rank=rank, world_size=WORLD,
                             timeout=datetime.timedelta(seconds=120))
     out = {"steps": [], "serving": [], "pipeline": [], "split_steps": [],
-           "split_faults": [], "split_serving": []}
+           "split_faults": [], "split_serving": [], "rest_moe": [],
+           "rest_faults": [], "rest_xlstm": []}
     out_dir = Path(out_dir)
     try:
         check_steps(out)
         check_split_steps(out)
         check_split_serving(out)
+        check_rest_of_split(out)
         check_elastic(out, out_dir / "ckpt")
         check_serving(out)
         check_pipeline(out)
