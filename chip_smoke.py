@@ -150,7 +150,8 @@ card) and against the NumPy oracles:
    non-zero ``h0``), and the kernel, its plain version and (flash) SDPA
    with a band mask timed at the model's shapes; (c) a prefill and a
    decode step in f32 on the kernels against the same run on the plain
-   versions, logits within ``P8_MODELS``'s tolerance (xlstm-125m's
+   versions (xlstm-125m's first ``P8_XLSTM_F32_LAYERS`` blocks), logits
+   within ``P8_MODELS``'s tolerance (xlstm-125m's
    ``XLSTM_FLOOR_MULT`` times the rounding floor measured in the same
    run) and the same greedy tokens, while the RG-LRU decode step's ``h0``
    dropped, the mLSTM's forget gates one step late, its prefill state
@@ -272,10 +273,39 @@ card) and against the NumPy oracles:
    launches and their device time (CUDA events around each launch;
    ``split_path`` in the kernels line).
 
+14. the training path of the recurrent and encoder-decoder families at
+   full width and depth, as phase 10 trains granite: recurrentgemma-2b
+   (bf16, 2 x 3072 tokens: RG-LRU scans and windowed flash attention),
+   xlstm-125m's production profile (f32, 8 x 2048: the chunked mLSTM on
+   ``mlstm_chunk``, the sLSTM's per-step loop) and whisper-large-v3
+   (bf16, 4 x 1500 frames and 1500 tokens: bidirectional, causal and
+   cross flash attention), weights drawn on the card from seed 0, through
+   ``repro_torch.runtime.Trainer`` (remat, AdamW with f32 moments):
+   (a) 4 steps: ms a step and tokens/s, ``max_memory_allocated`` beside
+   the parameter, gradient and moment bytes, the launches split at the
+   end of the forward (forward, then the same again in the recompute; the
+   backward passes' oracles launch none), one step profiled (device busy
+   share, the leading kernels, and the host time of the RG-LRU's, the
+   mLSTM's and the sLSTM's backward passes), the step's bound (3 x the
+   forward's operations against AdamW's bytes); xlstm-125m checkpoints
+   after step 2, restarts from it in a fresh ``Trainer`` and must lose
+   the same in step 3, bit for bit; (b) the loss falling on one repeated
+   batch (one update); (c) one f32 step at full width and
+   ``F32_TRAIN_LAYERS`` of depth (xlstm-125m: one mLSTM and sLSTM pair)
+   on the f32 kernels against the plain versions (the mLSTM's: the chunked
+   oracle), within ``P14_FLOOR_MULT`` times the plain step's distance to
+   the same step in f64 on the oracles and never looser than
+   ``F32_TRAIN_TOL``, and planted errors outside it: the window one key
+   short, the RG-LRU's ``h0`` ignored (the second half of a scan from
+   0), the mLSTM's column of ones zeroed (q, k x ``MLSTM_QK_SCALE`` so
+   that the normalizer is read), a chunked mLSTM backward that drops the
+   state carried between chunks, the encoder's attention made causal, and
+   cross-attention on the encoder output shifted by one frame.
+
 Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6,
 phase 8 after phase 7, phase 9 after phase 8, phase 10 after phase 9,
 phase 11 after phase 10, phase 12 after phase 11, phase 13 after phase
-12.
+12, phase 14 after phase 13.
 Phase 4 also times
 the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
@@ -303,7 +333,10 @@ also at the end of its forward (``train_path``: the launches of one
 step), and reset before each of phase 11's prefill, decode and train
 steps and read after it (``mesh_path``), and reset before phase 12's
 trace and its measured step and read after each (``dryrun_path``), and
-reset before each check of phase 13 and read after it (``split_path``).  Any
+reset before each check of phase 13 and read after it (``split_path``),
+and reset before each train step of phase 14 and read after it, and for
+its first step also at the end of its forward (``train_path``, by model,
+beside phase 10's).  Any
 mismatch or launch error ends the run with a non-zero code.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -479,6 +512,10 @@ P8_MODELS = (("recurrentgemma-2b", "get_config", 2, 3072, F32_MODEL_TOL),
              ("xlstm-125m", "get_optimized_config", 8, 2048,
               XLSTM_MODEL_TOL))
 P8_STEPS = 32
+#: (c) runs xlstm-125m's first blocks only (two mLSTM and two sLSTM): its
+#: nine f32 prefills at full depth took about a minute, most of it the
+#: sLSTM's per-step loop, which phase 14's training needs more
+P8_XLSTM_F32_LAYERS = 4
 #: phase 9: whisper-large-v3 (src/repro_torch/configs/whisper_large_v3.py)
 #: at full width and depth, bf16, served at batch 4 with 30 s of audio
 #: (WHISPER_CROSS_LEN = 1500 frames of the frontend stub) and a text
@@ -535,6 +572,51 @@ SPLIT_VALUE_BLOCKS = (1, 2, 4)
 SPLIT_MIXER_RANKS = (2, 4, 16)
 MLSTM_F32_TOL = 2e-3
 PEAK_TOL = 0.01
+#: phase 14: the recurrent and encoder-decoder families trained at full
+#: width and depth through repro_torch.runtime.Trainer (seed 0, remat, the
+#: reference's Trainer defaults: AdamW with f32 moments): (arch, config
+#: getter, batch, sequence, batch of (c)).  recurrentgemma-2b and
+#: xlstm-125m at phase 8's batches (the former past its 2048-token window),
+#: xlstm-125m in its production profile (configs.get_optimized_config: the
+#: chunked mLSTM in chunks of 128, as phase 8 serves it; the base config's
+#: per-step mLSTM runs no kernel); whisper-large-v3 at phase 9's batch of 4
+#: as the Trainer batches it (1500 frames and 1500 text tokens).  Then (c)'s
+#: batch and depth: one sequence of recurrentgemma-2b (its f64 witness's
+#: logits over 256000 tokens, 12.6 GB a pair of sequences, and their
+#: gradient would not fit the card beside the f64 state at two); the mLSTM
+#: block of xlstm-125m alone (the sLSTM, which runs no kernel, amplifies
+#: the backward's rounding: on an NVIDIA H100 80GB HBM3 at 700 W the plain
+#: f32 step's gradients lie 0.03876 from its f64 run's at 4 blocks and
+#: 0.01388 at one mLSTM and one sLSTM block, where no f32 step can meet
+#: F32_TRAIN_TOL)
+P14_MODELS = (("recurrentgemma-2b", "get_config", 2, 3072, 1,
+               F32_TRAIN_LAYERS),
+              ("xlstm-125m", "get_optimized_config", 8, 2048, 8, 1),
+              ("whisper-large-v3", "get_config", 4, 1500, 4,
+               F32_TRAIN_LAYERS))
+#: (a) Trainer.run steps: each counts its launches split at the end of the
+#: forward and is timed there and at its end (the first, the warm-up, not
+#: kept), but the third, which is profiled (and its recurrent backward
+#: passes timed on the host); xlstm-125m checkpoints after the second, and
+#: its fourth is the third run again from a fresh Trainer restored from
+#: that checkpoint, which must lose the same, bit for bit
+P14_STEPS, P14_CKPT_AT = 4, 2
+#: (b) steps of the train step on one repeated batch (warmup 1, peak lr
+#: 1e-3), then a forward on it, and the least fall of the loss, in nats,
+#: from the first step's to the forward's: one update (on an NVIDIA H100
+#: 80GB HBM3 at 700 W it lowered recurrentgemma-2b's loss by 0.904 and
+#: xlstm-125m's, the least, by 0.044; an xlstm-125m step takes 25-46 s,
+#: most of it the sLSTM's host time)
+P14_FIT_STEPS, P14_FIT_MARGIN = 1, 0.02
+#: (c) one f32 train step at full width and F32_TRAIN_LAYERS of depth (the
+#: first blocks of the pattern; whisper's encoder cut alike) on the f32
+#: kernels against the plain versions.  The tolerance is measured: the
+#: plain versions' f32 step against the same step in f64 on the oracles
+#: (the rounding of f32 through the model: the sLSTM amplifies it about
+#: 400-fold a layer), P14_FLOOR_MULT times that, and never looser than
+#: F32_TRAIN_TOL, for the loss, the gradient norm and the gradients; the
+#: update is held to F32_TRAIN_TOL's
+P14_FLOOR_MULT = 3.0
 
 
 class SmokeFailure(Exception):
@@ -671,21 +753,29 @@ def kernel_device_ms(backend, go) -> tuple:
 
 def profile_launch(go) -> dict:
     """Device time (ms) of every kernel and copy that one warm call of
-    ``go()`` runs, by name, from a ``torch.profiler`` trace; empty when the
+    ``go()`` runs, by name (:func:`profile_device`)."""
+    import torch
+    go()
+    torch.cuda.synchronize()
+    return profile_device(go)
+
+
+def profile_device(go) -> dict:
+    """Device time (ms) of every kernel and copy one call of ``go()`` runs,
+    by name: a ``torch.profiler`` trace of the device alone, read from its
+    raw events (a host-bound training step launches about a million
+    kernels; the profiler's per-op tree is not built); empty when the
     profiler recorded no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    go()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         go()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CPU:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) \
+                + e.duration_ns() / 1e6
     return by_name
 
 
@@ -1040,6 +1130,11 @@ def check_library_grads(dev) -> None:
         loss = sum((o.float() ** 2).sum() for o in _outs(fn(*ins)))
         return torch.autograd.grad(loss, ins)
 
+    def mlstm_ins():
+        return [leaf(2, 40, 8) for _ in range(3)] \
+            + [torch.log(leaf(2, 40, 1, lo=0.9, hi=0.99))
+               .detach().requires_grad_(), leaf(2, 40, 1, lo=0.1, hi=1.0)]
+
     counts = torch.tensor([20, 64], dtype=torch.int32, device=dev)
     xg = torch.randn((2, 64, 24), generator=gen, device=dev)
     xg[0, 20:] = 0
@@ -1054,11 +1149,11 @@ def check_library_grads(dev) -> None:
         "rglru_scan": (rglru_scan, rglru_scan_ref,
                        [leaf(1, 40, 16, lo=0.7, hi=0.99), leaf(1, 40, 16),
                         leaf(1, 16)]),
-        "mlstm_chunk": (mlstm_chunk, mlstm_chunk_ref,
-                        [leaf(2, 40, 8) for _ in range(3)]
-                        + [torch.log(leaf(2, 40, 1, lo=0.9, hi=0.99))
-                           .detach().requires_grad_(),
-                           leaf(2, 40, 1, lo=0.1, hi=1.0)]),
+        "mlstm_chunk": (mlstm_chunk, mlstm_chunk_ref, mlstm_ins()),
+        # three chunks of 16 (the last partial): the backward's chunked
+        # oracle carries its state between them
+        "mlstm_chunk in chunks of 16": (
+            lambda *a: mlstm_chunk(*a, 16), mlstm_chunk_ref, mlstm_ins()),
     }
     for name, (op, ref, ins) in pairs.items():
         for g, r in zip(grads(op, ins), grads(ref, ins)):
@@ -2382,7 +2477,17 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
     del captured, run, caches
 
     # -- (c) the whole model in f32: kernels against plain versions ---------
-    if model.embed.dtype != torch.float32:
+    if n_ml:   # xlstm-125m's first blocks, its own weights
+        keep = _cut_depth(cfg, P8_XLSTM_F32_LAYERS)
+        m32 = Model(keep, device="meta")
+        m32.load_state_dict({
+            n: t for n, t in model.state_dict().items()
+            if not n.startswith("blocks.")
+            or int(n.split(".")[1]) < keep.n_layers}, assign=True)
+        n_ml = sum(b.mixer == MLSTM for b in keep.blocks())
+        del model
+        torch.cuda.empty_cache()
+    elif model.embed.dtype != torch.float32:
         cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                     compute_dtype="float32")
         m32 = Model(cfg32, device="meta")
@@ -2474,7 +2579,8 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
     if n_ml:
         seen_err.append(_normalizer_planted(m32, f32_run, ops["mlstm"],
                                             plain_ops, tag))
-    print(f"{tag} (c): f32 prefill and decode step on the kernels "
+    print(f"{tag} (c): f32 prefill and decode step of "
+          f"{len(m32.blocks)} blocks on the kernels "
           f"({f32_counts}) within {_tol_text(model_tol)}{floor_text} of the "
           f"plain versions (max abs err {err:.4g}, logits up to "
           f"{float(logits_p.abs().max()):.4g}); greedy tokens identical "
@@ -3000,20 +3106,17 @@ def phase10(dev, smi: str) -> dict:
     loss falling on one batch, (c) one f32 step on the kernels against the
     plain versions, with planted errors.  Returns the kernels line's
     ``train_path`` entries, by kernel name."""
-    import contextlib
     import dataclasses
     import shutil
     import torch
     from repro_torch import configs
-    from repro_torch.configs.base import ParallelCfg, ShapeCfg
+    from repro_torch.configs.base import ShapeCfg
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_plain
     from repro_torch.kernels.moe_gmm.kernel import moe_gmm_plain
     from repro_torch.models import Model, layers
-    from repro_torch.optim import adamw_init
     from repro_torch.parallel import make_train_step
-    from repro_torch.parallel import steps as step_module
     from repro_torch.runtime import Trainer
 
     counters = launch_counters()
@@ -3208,30 +3311,10 @@ def phase10(dev, smi: str) -> dict:
                 device=dev)
     init = {n: t.clone() for n, t in m32.state_dict().items()}
     batch = SyntheticLMData(cfg32, shape, 0, device=dev).batch_at(0)
-    step32 = make_train_step(cfg32, ParallelCfg(remat=True), peak_lr=1e-3,
-                             warmup=1, total_steps=10)
-    real_update = step_module.adamw_update
 
     def f32_step(**patch) -> dict:
-        with torch.no_grad():
-            for n, p in m32.named_parameters():
-                p.copy_(init[n])
-        seen = {}
-
-        def keep_grads(grads, opt_state, params, **kw):
-            seen.update({n: g.detach().clone() for n, g in grads.items()})
-            return real_update(grads, opt_state, params, **kw)
-
-        with _patched(step_module, adamw_update=keep_grads), \
-                (_patched(layers, **patch) if patch
-                 else contextlib.nullcontext()):
-            _, _, metrics = step32(m32, adamw_init(dict(
-                m32.named_parameters())), batch, 0)
-        torch.cuda.synchronize()
-        return {"loss": float(metrics["loss"]),
-                "grad_norm": float(metrics["grad_norm"]), "grads": seen,
-                "update": {n: p.detach() - init[n]
-                           for n, p in m32.named_parameters()}}
+        return _f32_train_step(m32, init, batch,
+                               [(layers, patch)] if patch else ())
 
     def within(d: dict) -> bool:
         return all(d[k] <= F32_TRAIN_TOL[k] for k in F32_TRAIN_TOL)
@@ -3954,6 +4037,556 @@ def phase13(dev, smi: str, p12_peak_ratio: float) -> dict:
     return {SERVE_ARCH: moe, "xlstm-125m": {"mlstm_chunk": xl}}
 
 
+def _cut_depth(cfg, n: int):
+    """``cfg`` cut to its first ``n`` blocks (an encoder to ``n`` blocks),
+    in f32."""
+    import dataclasses
+    blocks = tuple(cfg.blocks()[:n])
+    over = dict(n_layers=len(blocks), layer_groups=((1, blocks),),
+                param_dtype="float32", compute_dtype="float32")
+    if cfg.encoder_decoder:
+        over["enc_layers"] = min(n, cfg.enc_layers)
+    return dataclasses.replace(cfg, **over)
+
+
+def _backward_spans(fn, spans: list):
+    """``fn`` (a layer's op or mixer, its first argument the input) whose
+    backward pass is timed on the host: from the gradient reaching its
+    first output to the gradient of its first argument, the device synced
+    at both ends, appended to ``spans`` (s).  Under remat the block's
+    recompute runs before the span (the first saved tensor the block's
+    backward unpacks), so a span is the op's own backward."""
+    import torch
+
+    def run(*args, **kw):
+        out = fn(*args, **kw)
+        first = out[0] if isinstance(out, tuple) else out
+        x = args[0]
+        if first.grad_fn is not None and x.requires_grad:
+            t0 = []
+
+            def start(g):
+                torch.cuda.synchronize()
+                t0.append(time.perf_counter())
+
+            def stop(g):
+                torch.cuda.synchronize()
+                spans.append(time.perf_counter() - t0.pop())
+            first.register_hook(start)
+            x.register_hook(stop)
+        return out
+    return run
+
+
+def _forward_ops(cfg, B: int, S: int) -> float:
+    """Operations (2 a multiply-add) of one forward of ``cfg`` over ``B x
+    S`` tokens: every block's weight products at each token (an encoder's
+    at each of its ``S`` frames, the frontend's projection, a cross
+    block's keys and values at each frame), the attention cores over
+    their (query, key) pairs, the mLSTM cores in chunks, and the logits
+    over the vocabulary's live columns; elementwise work not counted."""
+    from repro_torch.configs.base import ATTN, MLSTM, SWA
+    from repro_torch.models import Model
+    model = Model(cfg, device="meta")
+    T, D, hd = B * S, cfg.d_model, cfg.hd
+    per_token = sum(p.numel() for n, p in model.named_parameters()
+                    if p.dim() >= 2 and (n.startswith("blocks.")
+                                         or n.startswith("enc.")
+                                         or n.startswith("frontend."))
+                    and not n.endswith("conv_w"))
+    ops = 2.0 * T * per_token
+    for spec in cfg.blocks():
+        if spec.mixer in (ATTN, SWA):
+            window = cfg.window if spec.mixer == SWA else None
+            ops += 4.0 * hd * B * cfg.n_heads * _attn_pairs(S, window)
+        if spec.mixer == MLSTM:
+            hv = 2 * D // cfg.n_heads
+            ops += _mlstm_ops(B * cfg.n_heads, S, hv, hv + 1,
+                              cfg.mlstm_chunk)
+        if spec.cross_attn:
+            ops += 4.0 * hd * B * cfg.n_heads * S * S
+    if cfg.encoder_decoder:
+        ops += cfg.enc_layers * 4.0 * hd * B * cfg.n_heads * S * S
+    return ops + 2.0 * B * (S - 1) * D * cfg.vocab_size
+
+
+def _p14_train(dev, smi: str, tag: str, cfg, B: int, S: int, counters,
+               want_fwd: dict, checkpoint: bool) -> dict:
+    """Phase 14 (a) and (b) for one model: ``Trainer.run`` at full width
+    and depth, and the loss on one repeated batch."""
+    import shutil
+    import torch
+    from repro_torch.configs.base import MLSTM, RGLRU, SLSTM, ShapeCfg
+    from repro_torch.models import layers
+    from repro_torch.parallel import make_train_step
+    from repro_torch.runtime import Trainer
+
+    ckpt = ROOT / "build" / "phase14_ckpt" if checkpoint else None
+    kinds = {s.mixer for s in cfg.blocks()}
+    shape = ShapeCfg("phase14", S, B, "train")
+    if ckpt:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    tr = Trainer(cfg, shape, dev, ckpt_dir=ckpt, seed=0)
+    tr.init_state()
+    params = list(tr.model.parameters())
+    n_params = sum(p.numel() for p in params)
+    p_bytes = sum(p.numel() * p.element_size() for p in params)
+    m_bytes = sum(t.numel() * t.element_size() for k in ("m", "v")
+                  for t in tr.opt[k].values())
+    print(f"# {tag}: {cfg.n_layers} layers at full width"
+          + (f" (and {cfg.enc_layers} encoder blocks)"
+             if cfg.encoder_decoder else "")
+          + f", {n_params} parameters in {tr.model.embed.dtype}: "
+          f"parameters {p_bytes} B, gradients {p_bytes} B, AdamW moments "
+          f"{m_bytes} B in {cfg.opt_state_dtype}; batch {B} x {S} tokens, "
+          f"remat, on {smi}")
+    step_ms, losses, peaks = [], [], []
+    after_fwd, spans, prof = {}, {}, {}
+    fwd_ms = []
+
+    def forward_marked(model, t0: float):
+        """``model.forward_train`` reading the launches and the time at
+        the end of the forward (the device synced)."""
+        fwd = model.forward_train
+
+        def run(*a, **kw):
+            out = fwd(*a, **kw)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+            after_fwd.update(read_launches(counters))
+            return out
+        return run
+    timed_ops = {"rglru_scan": ("rglru_scan", RGLRU),
+                 "mlstm_chunk": ("mlstm_chunk", MLSTM),
+                 "slstm_share": ("sLSTM layer", SLSTM)}
+    digest = None
+    try:
+        for i in range(P14_STEPS):
+            restart = ckpt is not None and i == P14_STEPS - 1
+            if restart:   # a fresh Trainer from the step-2 checkpoint
+                del tr
+                torch.cuda.empty_cache()
+                tr = Trainer(cfg, shape, dev, ckpt_dir=ckpt, seed=0)
+                t0 = time.perf_counter()
+                check(tr.maybe_restore() and tr.step == P14_CKPT_AT,
+                      f"{tag} (a): no restore to step {P14_CKPT_AT}")
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                check(_state_digest(tr.model, tr.opt) == digest,
+                      f"{tag} (a): the restored state is not the saved "
+                      "one, bit for bit")
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(counters)
+            torch.cuda.synchronize()
+            if i == 2:
+                patch = {name: _backward_spans(getattr(layers, name),
+                                               spans.setdefault(name, []))
+                         for name, (_, kind) in timed_ops.items()
+                         if kind in kinds}
+                with _patched(layers, **patch):
+                    prof = profile_device(lambda: losses.append(
+                        tr.run(1).losses[0]))
+            else:   # the first step's times are the warm-up's: not kept
+                t0 = time.perf_counter()
+                with _patched(tr.model,
+                              forward_train=forward_marked(tr.model, t0)):
+                    losses += tr.run(1).losses
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            total = read_launches(counters)
+            check(all(total[n] == 2 * want_fwd.get(n, 0) for n in total),
+                  f"{tag} (a) step {i + 1}: expected twice {want_fwd} "
+                  f"launches (the forward and the recompute), got {total}")
+            back = {n: total[n] - after_fwd[n] for n in total}
+            check(all(after_fwd[n] == back[n] == want_fwd.get(n, 0)
+                      for n in total),
+                  f"{tag} (a) step {i + 1}: expected {want_fwd} launches in "
+                  f"the forward and as many in the backward, got "
+                  f"{after_fwd} and {back}")
+            peaks.append(torch.cuda.max_memory_allocated())
+            if ckpt is not None and tr.step == P14_CKPT_AT and not restart:
+                t0 = time.perf_counter()
+                tr.save_checkpoint()
+                save_s = time.perf_counter() - t0
+                digest = _state_digest(tr.model, tr.opt)
+        check(all(math.isfinite(x) for x in losses), f"{tag} (a): losses "
+              f"{losses}")
+        if ckpt is not None:
+            check(losses[3] == losses[2],
+                  f"{tag} (a): the restarted step lost {losses[3]!r} "
+                  f"against {losses[2]!r}: not bit-equal")
+            ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                             if f.is_file())
+            print(f"{tag} (a): checkpoint after step {P14_CKPT_AT} "
+                  f"({ckpt_bytes} B, written in {save_s:.2f} s); a fresh "
+                  f"Trainer restored "
+                  f"it in {restore_s:.2f} s, the state bit-equal to the "
+                  f"saved one ({len(digest)} tensors), and its step "
+                  f"{P14_CKPT_AT + 1} lost {losses[3]!r}, bit-equal to the "
+                  f"uninterrupted run's, on {smi}")
+    finally:
+        if ckpt:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    step_ms, fwd_ms = step_ms[1:], fwd_ms[1:]
+    ms = statistics.median(step_ms)
+    f_ms = statistics.median(fwd_ms)
+    peak = max(peaks)
+    print(f"{tag} (a): {P14_STEPS} steps of Trainer.run: {ms:.3f} ms a step "
+          f"(median of {[round(x, 3) for x in step_ms]}), "
+          f"{B * S / ms * 1e3:.1f} tokens/s; the forward {f_ms:.3f} ms "
+          f"(median of {[round(x, 3) for x in fwd_ms]}), the backward "
+          f"(recompute included) and AdamW {ms - f_ms:.3f} ms, "
+          f"{(ms - f_ms) / ms:.4f} of the step; peak memory "
+          f"{peak / 1e9:.3f} GB "
+          f"(max_memory_allocated; state {(2 * p_bytes + m_bytes) / 1e9:.3f} "
+          f"GB of parameters, gradients and moments; the process held "
+          f"{held / 1e9:.3f} GB before); launches a step: {after_fwd} in the "
+          f"forward, {back} in the backward (the recompute; the oracles "
+          f"launch none); losses {losses}; on {smi}")
+    check(peak < 80e9, f"{tag} (a): peak memory {peak} B")
+    # the profiled step: device busy share, the leading kernels, and the
+    # recurrent backward passes' host time
+    by_k = _by_kernel(prof)
+    busy = sum(prof.values())
+    lead = sorted(prof.items(), key=lambda kv: -kv[1])[:8]
+    span_ms = {timed_ops[n][0]: 1e3 * sum(s) for n, s in spans.items()}
+    if prof:
+        print(f"# {tag} profiled step: device busy {busy:.4f} ms of "
+              f"{ms:.4f} ms (busy share {busy / ms:.4f}): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in by_k.items() if v)
+              + f" on {smi}")
+        for name, kms in lead:
+            print(f"#   {kms:.4f} ms  {name[:100]}")
+    else:
+        print(f"# {tag} profiled step: torch.profiler recorded no device "
+              "activity (busy share not measured)")
+    for what, t in span_ms.items():
+        n = len(spans[next(k for k, v in timed_ops.items()
+                           if v[0] == what)])
+        print(f"# {tag} profiled step: the backward of {n} {what} calls "
+              f"takes {t:.1f} ms of host time ({t / ms:.4f} of a step; "
+              f"synced at both ends of each)")
+    # the step's bound: three times the forward's operations against the
+    # bytes of AdamW's state in and out (phase 10's)
+    fwd_ops = _forward_ops(cfg, B, S)
+    rate = BF16_OPS_PER_S if tr.model.embed.dtype == torch.bfloat16 \
+        else F32_OPS_PER_S
+    step_bytes = n_params * (tr.model.embed.element_size() + 4 + 4) * 2
+    t_ops, t_bytes = 3 * fwd_ops / rate, step_bytes / HBM_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"# {tag} bound: {bound_ms:.4f} ms by {bound_by} (3 x a forward "
+          f"of {fwd_ops:.6g} operations at {rate / 1e12:g} TFLOP/s; "
+          f"{step_bytes} B of weights and moments in and out at 3.35 TB/s); "
+          f"measured {ms / bound_ms:.2f}x the bound on {smi}")
+
+    # -- (b) the loss falls on one repeated batch --------------------------
+    fit = make_train_step(cfg, tr.pcfg, peak_lr=1e-3, warmup=1,
+                          total_steps=P14_FIT_STEPS)
+    batch = tr.data.batch_at(0)
+    fit_losses = []
+    reset_launches(counters)
+    for i in range(P14_FIT_STEPS):
+        _, tr.opt, metrics = fit(tr.model, tr.opt, batch, i)
+        fit_losses.append(float(metrics["loss"]))
+    with torch.no_grad():   # the loss after the last update: a forward
+        fit_losses.append(float(tr.model.forward_train(batch, remat=False)))
+    fit_counts = read_launches(counters)
+    check(all(fit_counts[n] == (2 * P14_FIT_STEPS + 1) * want_fwd.get(n, 0)
+              for n in fit_counts), f"{tag} (b): launches {fit_counts}")
+    check(all(math.isfinite(x) for x in fit_losses)
+          and fit_losses[-1] <= fit_losses[0] - P14_FIT_MARGIN,
+          f"{tag} (b): the loss fell from {fit_losses[0]} to "
+          f"{fit_losses[-1]}, less than {P14_FIT_MARGIN}")
+    print(f"{tag} (b): {P14_FIT_STEPS} step(s) of make_train_step on one "
+          f"batch (warmup 1, peak lr 1e-3), then its loss: "
+          f"{[round(x, 4) for x in fit_losses]}, a fall of "
+          f"{fit_losses[0] - fit_losses[-1]:.4f} (at least {P14_FIT_MARGIN}) "
+          f"on {smi}")
+    del tr, batch, fit
+    torch.cuda.empty_cache()
+    return {"ms": ms, "forward_ms": f_ms, "peak_bytes": peak,
+            "by_kernel": by_k, "busy": busy, "host_backward_ms": span_ms,
+            "bound_ms": bound_ms}
+
+
+def _f32_train_step(model, init: dict, batch, patches=()) -> dict:
+    """One train step (remat, AdamW, peak lr 1e-3 after a warmup of one)
+    of ``model`` from the parameters ``init``, with each ``(object,
+    attributes)`` of ``patches`` set: the loss, the global gradient norm,
+    every parameter's gradient and its update."""
+    import contextlib
+    import torch
+    from repro_torch.configs.base import ParallelCfg
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import make_train_step
+    from repro_torch.parallel import steps as step_module
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+    seen = {}
+    real_update = step_module.adamw_update
+
+    def keep_grads(grads, opt_state, params, **kw):
+        seen.update({n: g.detach().clone() for n, g in grads.items()})
+        return real_update(grads, opt_state, params, **kw)
+
+    step = make_train_step(model.cfg, ParallelCfg(remat=True), peak_lr=1e-3,
+                           warmup=1, total_steps=10)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_patched(step_module, adamw_update=keep_grads))
+        for obj, attrs in patches:
+            stack.enter_context(_patched(obj, **attrs))
+        _, _, metrics = step(model, adamw_init(dict(
+            model.named_parameters())), batch, 0)
+    torch.cuda.synchronize()
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "grads": seen,
+            "update": {n: p.detach() - init[n]
+                       for n, p in model.named_parameters()}}
+
+
+def _worst_grads(got: dict, want: dict, n: int = 3) -> str:
+    """The ``n`` parameters whose gradients lie furthest from ``want``'s,
+    in relative L2."""
+    rel = {name: float((got["grads"][name] - g).norm()
+                       / g.norm().clamp(min=1e-30))
+           for name, g in want["grads"].items()}
+    return ", ".join(f"{name} {r:.4g}" for name, r in sorted(
+        rel.items(), key=lambda kv: -kv[1])[:n])
+
+
+def _mlstm_state_dropped(q, k, v, lf, gi, bt=128):
+    """The chunked oracle with each chunk started from an empty state: a
+    chunked backward that drops the state carried between chunks."""
+    import torch
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_chunked_ref
+    outs = [mlstm_chunk_chunked_ref(*(t[:, t0:t0 + bt]
+                                      for t in (q, k, v, lf, gi)), bt)
+            for t0 in range(0, q.shape[1], bt)]
+    return torch.cat([y for y, _ in outs], 1), outs[-1][1]
+
+
+def _p14_f32(dev, smi: str, tag: str, cfg, B: int, S: int, depth: int,
+             counters, want_f32: dict) -> dict:
+    """Phase 14 (c) for one model: one f32 train step at full width and
+    ``depth`` blocks on the f32 kernels against the plain versions, within
+    a tolerance measured by the same step in f64 on the oracles; planted
+    errors must fall outside it."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import MLSTM, RGLRU, SWA, ShapeCfg
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_plain
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mlstm_chunk import ops as mlstm_ops
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_chunked_ref
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_plain
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.models import Model, layers
+
+    cfg32 = _cut_depth(cfg, depth)
+    kinds = {s.mixer for s in cfg32.blocks()}
+    m32 = Model(cfg32, generator=torch.Generator(device=dev).manual_seed(0),
+                device=dev)
+    blocks = [b for b in m32.blocks if b.spec.mixer == MLSTM]
+    with torch.no_grad():   # |q·n| past 1: the normalizer is read (phase 8)
+        for b in blocks:
+            b.mixer.p["w_qkv"][:, :4 * cfg.d_model] *= MLSTM_QK_SCALE
+    init = {n: t.detach().clone() for n, t in m32.state_dict().items()}
+    batch = SyntheticLMData(cfg32, ShapeCfg("phase14c", S, B, "train"), 0,
+                            device=dev).batch_at(0)
+    ops = {n: getattr(layers, n)
+           for n in ("flash_attention", "rglru_scan", "mlstm_chunk",
+                     "attention", "cross_kv")}
+    qn = []
+
+    def mlstm_seen(q, k, v, lf, gi, bt):
+        y, c = ops["mlstm_chunk"](q, k, v, lf, gi, bt)
+        qn.append(float(y[..., q.shape[-1]].detach().abs().max()))
+        return y, c
+
+    reset_launches(counters)
+    kern = _f32_train_step(m32, init, batch,
+                           [(layers, {"mlstm_chunk": mlstm_seen})])
+    counts = read_launches(counters)
+    check(counts == {n: 2 * want_f32.get(n, 0) for n in counts},
+          f"{tag} (c): the f32 step missed the f32 kernels: {counts}")
+    if MLSTM in kinds:
+        check(max(qn) > 1.0, f"{tag} (c): q, k x {MLSTM_QK_SCALE:g} left "
+              f"max |q·n| at {max(qn):.4g}: the normalizer is not read")
+    # the plain versions; the mLSTM's is the chunked oracle: the plain
+    # version's decay overflows above the diagonal at 128-step chunks, and
+    # its masked gradient there is NaN
+    plain_ops = dict(
+        flash_attention=lambda q, k, v, causal, window:
+            flash_attention_plain(q, k, v, causal=causal, window=window),
+        rglru_scan=rglru_scan_plain,
+        mlstm_chunk=lambda q, k, v, lf, gi, bt:
+            mlstm_chunk_chunked_ref(q, k, v, lf, gi, bt))
+    plain = _f32_train_step(m32, init, batch, [(layers, plain_ops)])
+    d = _train_diff(kern, plain)
+    worst = _worst_grads(kern, plain)
+    del kern
+    planted = {}
+    if SWA in kinds:
+        planted["the window one key short"] = [(layers, dict(
+            flash_attention=lambda q, k, v, causal, window:
+                ops["flash_attention"](q, k, v, causal,
+                                       window - 1 if window else window))
+            )]
+    if RGLRU in kinds:
+        # training starts every scan from h0 = 0, so the RG-LRU runs as two
+        # launches, the second half from h0 = 0 instead of the first
+        # half's final state
+        def halves(a, x, h0):
+            n = a.shape[1] // 2
+            h1, _ = ops["rglru_scan"](a[:, :n], x[:, :n], h0)
+            h2, hT = ops["rglru_scan"](a[:, n:], x[:, n:],
+                                       torch.zeros_like(h0))
+            return torch.cat([h1, h2], 1), hT
+        planted["the RG-LRU's h0 ignored (the second half of each scan "
+                "from 0)"] = [(layers, {"rglru_scan": halves})]
+    if MLSTM in kinds:
+        def ones_zeroed(q, k, v, lf, gi, bt):
+            keep = torch.ones(v.shape[-1], device=v.device)
+            keep[q.shape[-1]] = 0
+            return ops["mlstm_chunk"](q, k, v * keep, lf, gi, bt)
+        planted["the mLSTM's column of ones zeroed"] = [
+            (layers, {"mlstm_chunk": ones_zeroed})]
+        planted["a chunked mLSTM backward that drops the state carried "
+                "between chunks"] = [(mlstm_ops, {
+                    "mlstm_chunk_chunked_ref": _mlstm_state_dropped})]
+    if cfg.encoder_decoder:
+        planted["the encoder's attention made causal"] = [(layers, {
+            "attention": lambda *a, **kw: ops["attention"](
+                *a, **dict(kw, causal=True))})]
+        planted["cross-attention on the encoder output shifted by one "
+                "frame"] = [(layers, {
+                    "cross_kv": lambda e, *a, **kw: ops["cross_kv"](
+                        torch.cat([e[:, 1:], e[:, -1:]], 1), *a, **kw)})]
+    bad = {what: _train_diff(_f32_train_step(m32, init, batch, patch), plain)
+           for what, patch in planted.items()}
+    del m32
+    torch.cuda.empty_cache()
+
+    # the witness: the same step in f64 on the oracles
+    cfg64 = dataclasses.replace(cfg32, param_dtype="float64",
+                                compute_dtype="float64")
+    m64 = Model(cfg64, device="meta")
+    m64.load_state_dict({n: t.double() for n, t in init.items()},
+                        assign=True)
+    wit = _f32_train_step(m64, init, batch, [(layers, dict(
+        flash_attention=lambda q, k, v, causal, window:
+            attention_ref(q, k, v, causal=causal, window=window),
+        rglru_scan=rglru_scan_ref,
+        mlstm_chunk=lambda q, k, v, lf, gi, bt:
+            mlstm_chunk_chunked_ref(q, k, v, lf, gi, bt)))])
+    check(all(g.dtype == torch.float64 for g in wit["grads"].values()),
+          f"{tag} (c): the witness's gradients are not f64")
+    floor = _train_diff(plain, wit)
+    worst64 = _worst_grads(plain, wit)
+    del m64, wit
+    torch.cuda.empty_cache()
+    # the loss's and the gradient norm's floor at least one f32 rounding
+    # of them (a scalar's f32 and f64 runs can round alike); the update
+    # held at F32_TRAIN_TOL's: AdamW's first step is lr·sign(g), so its
+    # distance counts the gradient entries at the rounding noise whose sign
+    # flips, which is no multiple of the rounding floor
+    ulp = 2.0 ** -23
+    floor = dict(floor, loss=max(floor["loss"], ulp * abs(plain["loss"])),
+                 grad_norm=max(floor["grad_norm"], ulp))
+    tol = {k: min(F32_TRAIN_TOL[k], P14_FLOOR_MULT * floor[k])
+           for k in ("loss", "grad_norm", "grad")}
+    tol["update"] = F32_TRAIN_TOL["update"]
+
+    def within(x: dict) -> bool:
+        return all(x[k] <= tol[k] for k in tol)
+
+    print(f"# {tag} (c): the gradients furthest from the plain versions': "
+          f"on the kernels {worst}; in f32 from f64 {worst64}")
+
+    check(within(d), f"{tag} (c): the f32 step on the kernels differs from "
+          f"the plain versions' ({_diff_text(d)}), past {_diff_text(tol)} "
+          f"({P14_FLOOR_MULT:g} x the f32 step's distance to its f64 run, "
+          f"{_diff_text(floor)}, within {F32_TRAIN_TOL}; the update at "
+          f"F32_TRAIN_TOL's)")
+    for what, x in bad.items():
+        check(not within(x), f"{tag} (c): the tolerance {_diff_text(tol)} "
+              f"misses {what} ({_diff_text(x)})")
+    print(f"{tag} (c): one f32 train step at full width and "
+          f"{depth} layers, batch {B} x {S}, on the f32 kernels "
+          f"({counts}) within {_diff_text(tol)} of the plain versions "
+          f"({_diff_text(d)}; loss {plain['loss']:.6f}, gradient norm "
+          f"{plain['grad_norm']:.6f}): {P14_FLOOR_MULT:g} x the plain "
+          f"step's distance to the same step in f64 on the oracles "
+          f"({_diff_text(floor)}; the loss's and the norm's at least one "
+          f"f32 rounding), never looser than {F32_TRAIN_TOL}, the update "
+          f"at its"
+          + (f"; max |q·n| {max(qn):.4g} (q, k x {MLSTM_QK_SCALE:g})"
+             if qn else "")
+          + "; refuses " + "; ".join(f"{w}: {_diff_text(x)}"
+                                     for w, x in bad.items())
+          + f"; on {smi}")
+    return {"counts": counts, "diff": d, "floor": floor, "tol": tol}
+
+
+def phase14(dev, smi: str) -> dict:
+    """Phase 14: the recurrent and encoder-decoder families' training path
+    at full width and depth on the card (``P14_MODELS``): (a)
+    ``Trainer.run``, (b) the loss on one repeated batch, (c) one f32 step
+    at reduced depth on the kernels against the plain versions.  Returns
+    the kernels line's ``train_path`` entries, by model and kernel name."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import ATTN, MLSTM, RGLRU, SWA
+
+    def launches(cfg, route: str) -> dict:
+        kinds = [s.mixer for s in cfg.blocks()]
+        n_attn = sum(k in (ATTN, SWA) for k in kinds) \
+            + sum(s.cross_attn for s in cfg.blocks()) \
+            + (cfg.enc_layers if cfg.encoder_decoder else 0)
+        n = {route: n_attn, "rglru_scan": kinds.count(RGLRU),
+             "mlstm_chunk": kinds.count(MLSTM)
+             if cfg.mlstm_impl == "chunked" else 0}
+        return {k: v for k, v in n.items() if v}
+
+    counters = launch_counters()
+    out = {}
+    for arch, getter, B, S, B32, L32 in P14_MODELS:
+        tag = f"phase 14 {arch}"
+        cfg = getattr(configs, getter)(arch)
+        route = "flash_attention_sm90" if cfg.param_dtype == "bfloat16" \
+            else "flash_attention"
+        want = launches(cfg, route)
+        t0 = time.perf_counter()
+        res = _p14_train(dev, smi, tag, cfg, B, S, counters, want,
+                         checkpoint=arch == "xlstm-125m")
+        t_train = time.perf_counter() - t0
+        want32 = launches(_cut_depth(cfg, L32), "flash_attention")
+        f32 = _p14_f32(dev, smi, tag, cfg, B32, S, L32, counters, want32)
+        print(f"# {tag}: (a) and (b) {t_train:.1f} s, (c) "
+              f"{time.perf_counter() - t0 - t_train:.1f} s")
+        entry = {}
+        for name, n in want.items():
+            kind = "flash_attention" if name.startswith("flash") else name
+            entry[name] = {
+                "launches_per_step": 2 * n, "launches_forward": n,
+                "device_ms_step": res["by_kernel"][kind],
+                "share_step": res["by_kernel"][kind] / res["ms"]}
+            host = res["host_backward_ms"].get(name)
+            if host is not None:
+                entry[name]["host_backward_ms_step"] = host
+        for name, n in f32["counts"].items():
+            if n:
+                entry.setdefault(name, {})["launches_f32_step"] = n
+        out[arch] = entry
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "core").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script",
@@ -3978,6 +4611,11 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
+    start = time.perf_counter()
+
+    def lap(done: str) -> None:
+        print(f"# {done} done at {time.perf_counter() - start:.1f} s",
+              flush=True)
     print(f"# card: {smi}")
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -4043,6 +4681,7 @@ def main() -> int:
         for fn, line in ptxas_report(log):
             print(f"# ptxas {name} {fn}: {line}")
 
+    lap("phase 0")
     # -- phase 1: every kernel against its plain version and the oracle ---------
     for name in names:
         for lvl in levels:
@@ -4085,6 +4724,7 @@ def main() -> int:
           f"{WIDE_BLOCK} lanes ({lanes} a thread): bits equal to the plain "
           "version and the interpreter")
 
+    lap("phase 1")
     # -- phases 2-3: the main path at full width -------------------------------
     attn_want = attn_oracle(dict(attn_args))["O"]
     vadd_want = vadd_args["A"] + vadd_args["B"]
@@ -4162,6 +4802,7 @@ def main() -> int:
           "vadd 2^24: kernel != plain version")
     vadd_err = max_abs_err(vout["C"], pvout["C"])
 
+    lap("phases 2-3")
     # -- phase 5: the kernel library at full width ----------------------------
     from repro_torch.kernels.hetir_gen import het_kernel
     from repro_torch.kernels.hetir_gen.ref import het_kernel_ref
@@ -4194,6 +4835,7 @@ def main() -> int:
           f"het_kernel_ref; segment launches {dict(het.backend.launches)}")
     print(f"# kernel-library launches in phase 5's main path: {lib_launches}")
 
+    lap("phase 5")
     # -- phase 4: times ---------------------------------------------------------
     def launcher(session, prog, grid, block, args):
         fn = session.load(prog).function()
@@ -4332,18 +4974,22 @@ def main() -> int:
              "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": lib_ms, "library_device_ms": lib_dev_ms})
+    lap("phase 4")
     # -- phase 6: the persistent tiers, serving and the fleet on the card -------
     p6 = phase6(dev, smi)
     for k, mode in ((kernels[0], "scalar"), (kernels[1], "block")):
         k["phase6_launches"] = {part: c.get(mode, 0)
                                 for part, c in p6.items()}
+    lap("phase 6")
     # phases 7-9 serve: no autograd (the parameters require gradients)
     with torch.no_grad():
         # -- phase 7: the model stack's serving path at full width ----------
         p7 = phase7(dev, smi)
         serve_tokens = p7.pop("tokens")
+        lap("phase 7")
         # -- phase 8: the recurrent families on the serving path ------------
         p8 = dict(phase8(dev, smi), **{SERVE_ARCH: p7})
+        lap("phase 8")
         # -- phase 9: the encoder-decoder family on the serving path --------
         p8[WHISPER_ARCH] = phase9(dev, smi)
     for k in kernels:
@@ -4351,22 +4997,23 @@ def main() -> int:
                 if k["name"] in res}
         if path:
             k["model_path"] = path
+    lap("phase 9")
     # -- phase 10: the training path at full width -----------------------------
     p10 = phase10(dev, smi)
     first_step = p10.pop("first_step")
-    for k in kernels:
-        if k["name"] in p10:
-            k["train_path"] = {SERVE_ARCH: p10[k["name"]]}
+    lap("phase 10")
     # -- phase 11: the multi-device layer on the card's one-device mesh -------
     p11 = phase11(dev, smi, serve_tokens, first_step)
     for k in kernels:
         if k["name"] in p11:
             k["mesh_path"] = {SERVE_ARCH: p11[k["name"]]}
+    lap("phase 11")
     # -- phase 12: the production dry run's one-card cell ---------------------
     p12, p12_peak = phase12(dev, smi)
     for k in kernels:
         if p12.get(k["name"]):
             k["dryrun_path"] = {SERVE_ARCH: p12[k["name"]]}
+    lap("phase 12")
     # -- phase 13: the split's per-rank shares on the card ---------------------
     p13 = phase13(dev, smi, p12_peak)
     for k in kernels:
@@ -4374,6 +5021,15 @@ def main() -> int:
                 if k["name"] in res}
         if path:
             k["split_path"] = path
+    lap("phase 13")
+    # -- phase 14: the recurrent and encoder-decoder families trained ---------
+    p14 = dict(phase14(dev, smi), **{SERVE_ARCH: p10})
+    for k in kernels:
+        if any(k["name"] in res for res in p14.values()):
+            k["train_path"] = {arch: res.get(k["name"],
+                                             {"launches_per_step": 0})
+                               for arch, res in p14.items()}
+    lap("phase 14")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

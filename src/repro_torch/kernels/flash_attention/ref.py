@@ -27,7 +27,9 @@ def _attend(q, k, v, causal, window, q0: int):
     """Attention of the queries at positions ``q0 ..`` on every key."""
     B, H, Sq, d = q.shape
     Sk = k.shape[2]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    # f32, or f64 for f64 operands (a model's f64 run)
+    wt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(wt), k.to(wt)) / math.sqrt(d)
     qpos = q0 + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -39,5 +41,5 @@ def _attend(q, k, v, causal, window, q0: int):
     m = torch.clamp(torch.amax(s, dim=-1, keepdim=True), min=-1e30)
     p = torch.exp(s - m)
     l = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
-    o = torch.einsum("bhqk,bhkd->bhqd", p / l, v.float())
+    o = torch.einsum("bhqk,bhkd->bhqd", p / l, v.to(wt))
     return o.to(q.dtype)

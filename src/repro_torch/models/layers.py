@@ -130,20 +130,32 @@ def init_moe(cfg: ModelConfig, dtype, device, generator
     return p
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The type the layers' f32 math runs in for inputs of ``dtype``:
+    float32, or float64 for float64 inputs (a model run in f64, the
+    witness of the f32 model's rounding)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def f32up(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in :func:`wide`'s type: ``t.float()``, an f64 tensor kept."""
+    return t.to(wide(t.dtype))
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
-    xf = x.float()
+    xf = f32up(x)
     var = xf.square().mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(x.dtype)
+    return (y * (1.0 + f32up(scale))).to(x.dtype)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
-    xf = x.float()
+    xf = f32up(x)
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
@@ -725,9 +737,9 @@ def _rglru_gates(u, p: Params, ac=None):
     every channel of ``u``, gathered)."""
     uw = ac.gather(u, 2) if ac is not None and \
         u.shape[-1] < p["w_r"].shape[0] else u
-    r = torch.sigmoid((uw @ p["w_r"]).float())
-    i = torch.sigmoid((uw @ p["w_i"]).float())
-    log_a = _RG_C * r * _log_sigmoid(p["lam"].float())
+    r = torch.sigmoid(f32up(uw @ p["w_r"]))
+    i = torch.sigmoid(f32up(uw @ p["w_i"]))
+    log_a = _RG_C * r * _log_sigmoid(f32up(p["lam"]))
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
     return a, beta * i
@@ -762,10 +774,10 @@ def rglru(x, p: Params, cfg: ModelConfig, state=None, ac=None):
     u, new_conv = _causal_conv(u, p["conv_w"],
                                None if state is None else state["conv"])
     a, b = _rglru_gates(u, p, ac)                # [B,S,dr] f32
-    bu = b * u.float()
-    h0 = torch.zeros((B, u.shape[-1]), dtype=torch.float32,
+    bu = b * f32up(u)
+    h0 = torch.zeros((B, u.shape[-1]), dtype=wide(x.dtype),
                      device=x.device) if state is None \
-        else state["h"].float()
+        else f32up(state["h"])
     hs, h_final = rglru_scan(a, bu, h0)
     y = _row_parallel(ac, hs.to(x.dtype) * gate, p["w_out"],
                       cfg.d_rnn or cfg.d_model)
@@ -893,7 +905,7 @@ def _mlstm_inputs(x, p: Params, cfg: ModelConfig, index: int = 0,
     q = q.reshape(B, S, hl, hd) / math.sqrt(hd)
     k = k.reshape(B, S, hl, hd) / math.sqrt(hd)
     v = v.reshape(B, S, hl, -1)
-    gates = (x @ w_if).float().reshape(B, S, 2, hl)
+    gates = f32up(x @ w_if).reshape(B, S, 2, hl)
     return q, k, v, _log_sigmoid(gates[:, :, 0]), _log_sigmoid(gates[:, :, 1])
 
 
@@ -1011,14 +1023,14 @@ def mlstm_chunked_share(x, p: Params, cfg: ModelConfig, state=None,
     hl, hk, hv = q.shape[2], q.shape[3], v.shape[3]
 
     def heads(t):               # [B,S,h,...] -> [B*h,S,...] f32
-        t = t.float().transpose(1, 2)
+        t = f32up(t).transpose(1, 2)
         return t.reshape(B * hl, S, *t.shape[3:])
 
     q, k, v = heads(q), heads(k), heads(v)
     lf = heads(log_f)[..., None]                      # [B*h,S,1]
     gi = torch.exp(heads(log_i))[..., None]
     dv = _ones_width(hv)
-    f32 = dict(dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=wide(x.dtype), device=x.device)
     v1 = torch.cat([v, torch.ones((B * hl, S, 1), **f32),
                     torch.zeros((B * hl, S, dv - hv - 1), **f32)], dim=-1)
     y, c_fin = mlstm_chunk(q, k, v1, lf, gi, bt)
@@ -1087,19 +1099,21 @@ def slstm_share(x, p: Params, cfg: ModelConfig, state=None, index: int = 0,
     Dl = hl * dh
     zx = x @ w_x                                       # [B,S,4*Dl]
     if state is None:
-        f32 = dict(dtype=torch.float32, device=x.device)
+        f32 = dict(dtype=wide(x.dtype), device=x.device)
         c, nrm, h, m = (torch.zeros((B, Dl), **f32),
                         torch.ones((B, Dl), **f32),
                         torch.zeros((B, Dl), **f32),
                         torch.zeros((B, Dl), **f32))
     else:
-        c, nrm, h, m = (state[k].float() for k in ("c", "n", "h", "m"))
+        c, nrm, h, m = (f32up(state[k]) for k in ("c", "n", "h", "m"))
     # recurrent weights laid out gate-major to match w_x's [4*D] layout
-    r = r.float().reshape(hl, dh, 4, dh)
+    r = f32up(r).reshape(hl, dh, 4, dh)
     hs = []
-    for t in range(S):
+    # the steps of zx taken apart once (one op in the backward, where a
+    # slice a step would fill a zero gradient of the whole of zx each step)
+    for zx_t in f32up(zx).unbind(1):
         zr = torch.einsum("bhk,hkgj->bghj", h.reshape(B, hl, dh), r)
-        z = zx[:, t].float() + zr.reshape(B, 4 * Dl)
+        z = zx_t + zr.reshape(B, 4 * Dl)
         zi, zf, zz, zo = z.chunk(4, dim=-1)
         m_new = torch.maximum(zf + m, zi)
         i = torch.exp(zi - m_new)

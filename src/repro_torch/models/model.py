@@ -460,7 +460,7 @@ class Model(nn.Module):
         name = "embed" if self.cfg.tie_embeddings else "lm_head"
         with _gathered(self.executor, self, (name,)):
             w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-            return (x @ w.to(x.dtype)).float()
+            return L.f32up(x @ w.to(x.dtype))
 
     def _nll(self, logits, labels, ac=None):
         """Each position's negative log-likelihood of its label, f32.  On

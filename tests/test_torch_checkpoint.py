@@ -253,10 +253,14 @@ def test_trainer_defaults_to_the_card():
             Trainer(cfg, SMOKE_SHAPE)
 
 
-def test_launcher_smoke_on_cpu(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "recurrentgemma-2b", "xlstm-125m",
+                                  "whisper-large-v3"])
+def test_launcher_smoke_on_cpu(tmp_path, capsys, arch):
     """``--smoke --device cpu``: the smoke shape, checkpoints, and a second
-    launch resumes where the first stopped."""
-    argv = ["--arch", "granite-moe-3b-a800m", "--smoke", "--device", "cpu",
+    launch resumes where the first stopped, for the MoE, recurrent and
+    encoder–decoder families."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu",
             "--steps", "2", "--ckpt", str(tmp_path), "--checkpoint-every",
             "1"]
     rep = train_launcher.main(argv)
