@@ -300,12 +300,36 @@ card) and against the NumPy oracles:
    0), the mLSTM's column of ones zeroed (q, k x ``MLSTM_QK_SCALE`` so
    that the normalizer is read), a chunked mLSTM backward that drops the
    state carried between chunks, the encoder's attention made causal, and
-   cross-attention on the encoder output shifted by one frame.
+   cross-attention on the encoder output shifted by one frame.  (a) and
+   (b) take xlstm-125m's first ``P14_DEPTH`` blocks.
+
+15. the dense, windowed and VLM families at full width and depth
+   (``P15_SERVE``, bf16, weights drawn on the card from seed 0):
+   llama3.2-3b (28 layers, 24 heads over 8 kv heads, tied embeddings)
+   and glm4-9b (40 layers, 2 kv heads, a vocabulary of 151552) at batch 4
+   over 1024 tokens, h2o-danube-3-4b (24 layers, window 4096) over one
+   prompt of 4096 whose decode passes the window (its ring caches wrap)
+   and internvl2-2b (24 layers, the patch frontend: 256 patch embeddings
+   ahead of 768 text tokens), 32 steps each: (a)-(c) as phase 8 serves
+   its models (the launches split at the end of the prefill: a
+   ``flash_attention_sm90`` a layer, none in the decode; (c) an f32
+   prefill and decode step at ``P15_F32_LAYERS`` blocks on the f32 kernel
+   against the plain version, while the queries rotated one position
+   late fall outside ``F32_MODEL_TOL``); (d) the one-card dry run of each
+   one's train step at phase 10's batch in the production profile
+   (``configs.get_optimized_config``: ``attn_vjp="flash"``, the chunked
+   attention backward) predicts its peak: glm4-9b's state does not fit
+   the card, and llama3.2-3b, h2o-danube-3-4b and internvl2-2b train
+   through ``Trainer.run`` as phase 14 trains (launches, a profiled step,
+   the bound, the loss falling over ``P15_FIT_STEPS`` updates on one
+   batch), the measured peak beside the predicted one; (e) one phase-14
+   step of whisper-large-v3 under ``attn_vjp="autodiff"`` and one under
+   ``"flash"``: ms a step and peak of each, the same first loss.
 
 Phase 4 runs after phase 5, phase 6 after phase 4, phase 7 after phase 6,
 phase 8 after phase 7, phase 9 after phase 8, phase 10 after phase 9,
 phase 11 after phase 10, phase 12 after phase 11, phase 13 after phase
-12, phase 14 after phase 13.
+12, phase 14 after phase 13, phase 15 after phase 14.
 Phase 4 also times
 the six library kernels (CUDA events,
 median of warm launches, and the profiler's device time), their plain
@@ -336,7 +360,9 @@ trace and its measured step and read after each (``dryrun_path``), and
 reset before each check of phase 13 and read after it (``split_path``),
 and reset before each train step of phase 14 and read after it, and for
 its first step also at the end of its forward (``train_path``, by model,
-beside phase 10's).  Any
+beside phase 10's), and in phase 15 as in phases 8 and 14 (its serving
+under ``model_path`` and its training under ``train_path``, by model;
+whisper-large-v3's two steps of (e) under ``attn_vjp_steps``).  Any
 mismatch or launch error ends the run with a non-zero code.  The last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -607,7 +633,7 @@ P14_STEPS, P14_CKPT_AT = 4, 2
 #: 80GB HBM3 at 700 W it lowered recurrentgemma-2b's loss by 0.904 and
 #: xlstm-125m's, the least, by 0.044; an xlstm-125m step takes 25-46 s,
 #: most of it the sLSTM's host time)
-P14_FIT_STEPS, P14_FIT_MARGIN = 1, 0.02
+P14_FIT_STEPS, P14_FIT_LR, P14_FIT_MARGIN = 1, 1e-3, 0.02
 #: (c) one f32 train step at full width and F32_TRAIN_LAYERS of depth (the
 #: first blocks of the pattern; whisper's encoder cut alike) on the f32
 #: kernels against the plain versions.  The tolerance is measured: the
@@ -617,6 +643,40 @@ P14_FIT_STEPS, P14_FIT_MARGIN = 1, 0.02
 #: F32_TRAIN_TOL, for the loss, the gradient norm and the gradients; the
 #: update is held to F32_TRAIN_TOL's
 P14_FLOOR_MULT = 3.0
+#: (a) and (b) at reduced depth, by model: xlstm-125m's first 4 blocks (2
+#: mLSTM, 2 sLSTM).  Its host-bound sLSTM steps at all 12 took 269 s of the
+#: script's 1200 s on an NVIDIA H100 80GB HBM3 at 700 W, and phase 15
+#: needs that time
+P14_DEPTH = {"xlstm-125m": 4}
+#: phase 15: the dense, windowed and VLM families at full width and depth
+#: (src/repro_torch/configs/{llama3_2_3b,h2o_danube_3_4b,glm4_9b,
+#: internvl2_2b}.py), bf16, weights drawn on the card from seed 0, served
+#: through repro_torch.launch.serve as phase 7 serves granite: (arch,
+#: batch, prompt positions).  h2o-danube-3-4b's prompt of 4096 positions
+#: and its P15_STEPS decode steps pass its window of 4096 keys, so that
+#: its ring caches wrap; internvl2-2b's prompts hold make_batch's 256 patch
+#: embeddings ahead of 768 text tokens
+P15_SERVE = (("llama3.2-3b", 4, 1024), ("h2o-danube-3-4b", 1, 4096),
+             ("glm4-9b", 4, 1024), ("internvl2-2b", 4, 1024))
+P15_STEPS = 32
+#: (c): the f32 prefill and decode step at the first blocks of each
+P15_F32_LAYERS = 2
+#: trained through Trainer.run in the production profile
+#: (configs.get_optimized_config: attn_vjp="flash", the chunked attention
+#: backward) at phase 10's batch, each after the one-card dry run has
+#: predicted its peak; glm4-9b's state (about 94 GB of bf16 weights and
+#: gradients and f32 moments) does not fit the card: its prediction alone
+P15_TRAIN = ("llama3.2-3b", "h2o-danube-3-4b", "internvl2-2b")
+P15_PREDICT_ONLY = ("glm4-9b",)
+#: (b) of each: P15_FIT_STEPS updates on one repeated batch at peak lr
+#: P15_FIT_LR (warmup 1), and the least fall of the loss.  Phase 14's one
+#: update at 1e-3 (AdamW's first step: 1e-3 times the gradient's sign in
+#: every entry, about 5 % of llama3.2-3b's 1/sqrt(3072) weights) raised
+#: llama3.2-3b's loss from 11.054 to 11.569 on an NVIDIA H100 80GB HBM3 at
+#: 700 W
+P15_FIT_STEPS, P15_FIT_LR, P15_FIT_MARGIN = 4, 1e-4, 0.02
+#: one phase-14 step of whisper-large-v3 under each attention backward
+P15_VJPS = ("autodiff", "flash")
 
 
 class SmokeFailure(Exception):
@@ -1868,8 +1928,8 @@ def phase7(dev, smi: str) -> dict:
     captured = {"flash": [], "gmm": [], "dgmm": []}
     prefill_counts = []
 
-    def flash_capture(q, k, v, causal, window):
-        out = op_flash(q, k, v, causal, window)
+    def flash_capture(q, k, v, causal, window, **kw):
+        out = op_flash(q, k, v, causal, window, **kw)
         if seen["flash"] in pick["flash"]:
             captured["flash"].append(((q, k, v, causal, window), out))
         seen["flash"] += 1
@@ -2048,7 +2108,7 @@ def phase7(dev, smi: str) -> dict:
     # the same weights and prompt give the same bits on every run
     check(torch.equal(f32_run()[0], logits_k),
           "phase 7 (c): a second f32 run on the kernels gave other logits")
-    plain_flash = (lambda q, k, v, causal, window:
+    plain_flash = (lambda q, k, v, causal, window, **kw:
                    flash_attention_plain(q, k, v, causal=causal,
                                          window=window))
     with _patched(layers, flash_attention=plain_flash,
@@ -2174,15 +2234,16 @@ def _model_bounds(model, B: int, S: int, steps: int, caches) -> tuple:
     bytes; a decode step by the bytes of every weight, the k/v caches it
     reads and the recurrent states it reads and writes."""
     import torch
-    from repro_torch.configs.base import MLSTM, SWA
+    from repro_torch.configs.base import ATTN, MLSTM, SWA
     cfg = model.cfg
     kinds = [s.mixer for s in cfg.blocks()]
     T = B * S
     dense = sum(p.numel() for blk in model.blocks for p in blk.parameters()
                 if p.dim() >= 2)
     proj_ops = 2.0 * T * dense
-    attn_ops = 4.0 * cfg.hd * B * cfg.n_heads * _attn_pairs(S, cfg.window) \
-        * kinds.count(SWA)
+    attn_ops = 4.0 * cfg.hd * B * cfg.n_heads * (
+        _attn_pairs(S, cfg.window) * kinds.count(SWA)
+        + _attn_pairs(S, None) * kinds.count(ATTN))
     hd_m = 2 * cfg.d_model // cfg.n_heads
     core_ops = _mlstm_ops(B * cfg.n_heads, S, hd_m, hd_m + 1,
                           cfg.mlstm_chunk) * kinds.count(MLSTM) \
@@ -2208,16 +2269,21 @@ def _model_bounds(model, B: int, S: int, steps: int, caches) -> tuple:
 
 
 def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
-                  model_tol: tuple, steps: int) -> dict:
-    """Phase 8 for one recurrent model: (a) served through
+                  model_tol: tuple, steps: int, tag: str = "",
+                  f32_layers: int = 0) -> dict:
+    """Phase 8 for one model (phase 15 for the dense, windowed and VLM
+    ones, ``tag`` naming the phase): (a) served through
     ``repro_torch.launch.serve``, (b) captured kernel calls against their
-    plain versions, (c) the whole model on the kernels against the plain
-    versions in f32.  Returns the kernels line's entries by kernel name."""
+    plain versions, (c) the model in f32 (its first ``f32_layers`` blocks
+    where given, xlstm-125m's first ``P8_XLSTM_F32_LAYERS``) on the
+    kernels against the plain versions.  ``S`` counts every position of
+    the prompt (the patch frontend's included).  Returns the kernels
+    line's entries by kernel name."""
     import dataclasses
     import random
     import torch
     from repro_torch import configs
-    from repro_torch.configs.base import MLSTM, RGLRU, SLSTM, SWA
+    from repro_torch.configs.base import ATTN, MLSTM, RGLRU, SLSTM, SWA
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_fwd, flash_attention_plain)
     from repro_torch.kernels.mlstm_chunk.kernel import (mlstm_chunk_fwd,
@@ -2234,16 +2300,18 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
     cfg = getattr(configs, getter)(arch)
     kinds = [s.mixer for s in cfg.blocks()]
     n_rg, n_swa, n_sl = (kinds.count(k) for k in (RGLRU, SWA, SLSTM))
+    n_attn = n_swa + kinds.count(ATTN)
     n_ml = kinds.count(MLSTM) if cfg.mlstm_impl == "chunked" else 0
     ops = {"flash": layers.flash_attention, "rglru": layers.rglru_scan,
            "mlstm": layers.mlstm_chunk}
-    tag = f"phase 8 {arch}"
+    tag = f"{tag or 'phase 8'} {arch}"
     t0 = time.perf_counter()
     model = Model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                   device=dev)
     torch.cuda.synchronize()
     print(f"# {tag}: {cfg.n_layers} layers at full width "
-          f"({kinds.count(RGLRU)} RG-LRU, {n_swa} local attention, "
+          f"({kinds.count(RGLRU)} RG-LRU, {n_swa} local and "
+          f"{n_attn - n_swa} global attention, "
           f"{kinds.count(MLSTM)} mLSTM ({cfg.mlstm_impl}), {n_sl} sLSTM), "
           f"{sum(p.numel() for p in model.parameters())} parameters in "
           f"{model.embed.dtype} on the card, drawn in "
@@ -2274,9 +2342,9 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
           and int(tokens.max()) < cfg.padded_vocab,
           f"{tag}: generated tokens {tuple(tokens.shape)} out of range")
     flash_prefill = sum(after_prefill[n] for n in flash_routes)
-    check(flash_prefill == n_swa and after_prefill["rglru_scan"] == n_rg
+    check(flash_prefill == n_attn and after_prefill["rglru_scan"] == n_rg
           and after_prefill["mlstm_chunk"] == n_ml,
-          f"{tag} prefill: expected {n_swa} flash, {n_rg} rglru_scan and "
+          f"{tag} prefill: expected {n_attn} flash, {n_rg} rglru_scan and "
           f"{n_ml} mlstm_chunk launches, got {after_prefill}")
     check(decode["rglru_scan"] == n_rg * (steps - 1)
           and sum(decode.values()) == decode["rglru_scan"],
@@ -2292,6 +2360,14 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
 
     caches, batch = run["caches"], run["batch"]
     tok = tokens[:, -1:].to(dev)
+    if n_swa:   # the windowed layers' ring caches
+        slots = {c["k"].shape[1] for c, k in zip(caches, kinds) if k == SWA}
+        last = S + steps - 2          # the last decode step's position
+        check(slots == {min(cfg.window, S + steps)},
+              f"{tag}: ring caches of {slots} slots, window {cfg.window}")
+        print(f"# {tag}: {n_swa} ring caches of {min(slots)} slots (window "
+              f"{cfg.window}); the decode wrote positions {S}..{last}"
+              + (": the ring wrapped" if last >= min(slots) else ""))
 
     def go_prefill():
         return model.prefill(batch, cache_len=S + steps)
@@ -2339,7 +2415,7 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
 
     # -- (b) a second run whose layers capture a seeded sample --------------
     rnd = random.Random(0)
-    pools = {"flash": n_swa, "rglru": n_rg, "drglru": n_rg * (steps - 1),
+    pools = {"flash": n_attn, "rglru": n_rg, "drglru": n_rg * (steps - 1),
              "mlstm": n_ml}
     pick = {k: set(rnd.sample(range(n), min(CAPTURE_SAMPLE, n)))
             for k, n in pools.items()}
@@ -2356,8 +2432,8 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
                 out, torch.Tensor) else copies(out)))
         seen[kind] += 1
 
-    def flash_capture(q, k, v, causal, window):
-        out = ops["flash"](q, k, v, causal, window)
+    def flash_capture(q, k, v, causal, window, **kw):
+        out = ops["flash"](q, k, v, causal, window, **kw)
         keep("flash", (q, k, v, causal, window), out)
         return out
 
@@ -2476,15 +2552,18 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
               f"by {tm['bound_by']} on {smi}")
     del captured, run, caches
 
-    # -- (c) the whole model in f32: kernels against plain versions ---------
-    if n_ml:   # xlstm-125m's first blocks, its own weights
-        keep = _cut_depth(cfg, P8_XLSTM_F32_LAYERS)
+    # -- (c) the model in f32: kernels against plain versions --------------
+    f32_layers = f32_layers or (P8_XLSTM_F32_LAYERS if n_ml else 0)
+    if f32_layers:   # its first blocks, its own weights
+        keep = _cut_depth(cfg, f32_layers)
         m32 = Model(keep, device="meta")
         m32.load_state_dict({
-            n: t for n, t in model.state_dict().items()
+            n: t.float() for n, t in model.state_dict().items()
             if not n.startswith("blocks.")
             or int(n.split(".")[1]) < keep.n_layers}, assign=True)
-        n_ml = sum(b.mixer == MLSTM for b in keep.blocks())
+        kinds = [b.mixer for b in keep.blocks()]
+        n_rg, n_ml = kinds.count(RGLRU), kinds.count(MLSTM)
+        n_attn = kinds.count(SWA) + kinds.count(ATTN)
         del model
         torch.cuda.empty_cache()
     elif model.embed.dtype != torch.float32:
@@ -2511,13 +2590,13 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
     reset_launches(counters)
     logits_k, first_k, next_k = f32_run()
     f32_counts = read_launches(counters)
-    check(f32_counts["flash_attention"] == n_swa
+    check(f32_counts["flash_attention"] == n_attn
           and f32_counts["rglru_scan"] == 2 * n_rg
           and f32_counts["mlstm_chunk"] == n_ml,
           f"{tag} (c): the f32 prefill and decode step missed the f32 "
           f"kernels: {f32_counts}")
     plain_ops = dict(
-        flash_attention=lambda q, k, v, causal, window:
+        flash_attention=lambda q, k, v, causal, window, **kw:
             flash_attention_plain(q, k, v, causal=causal, window=window),
         rglru_scan=rglru_scan_plain,
         mlstm_chunk=lambda q, k, v, lf, gi, bt:
@@ -2568,6 +2647,12 @@ def _phase8_model(dev, smi: str, arch: str, getter: str, B: int, S: int,
             return y, dict(st, m=torch.full_like(st["m"], -1e30))
         planted["the mLSTM prefill state handed on with m = -1e30"] = dict(
             mlstm_chunked=empty_scaling)
+    if n_attn == len(kinds):   # attention alone: phase 7's planted error
+        rope = layers.rope
+
+        def late_q(x, pos, theta):
+            return rope(x, pos + int(x.shape[-2] == cfg.n_heads), theta)
+        planted["the queries rotated one position late"] = dict(rope=late_q)
     seen_err = []
     for what, patch in planted.items():
         with _patched(layers, **patch):
@@ -2903,8 +2988,8 @@ def phase9(dev, smi: str) -> dict:
             return "encoder"
         return "cross decode" if q.shape[2] == 1 else "cross prefill"
 
-    def flash_capture(q, k, v, causal, window):
-        out = op_flash(q, k, v, causal, window)
+    def flash_capture(q, k, v, causal, window, **kw):
+        out = op_flash(q, k, v, causal, window, **kw)
         kind = kind_of(q, k, causal)
         if kind is not None:
             if seen[kind] in pick[kind]:
@@ -2994,7 +3079,7 @@ def phase9(dev, smi: str) -> dict:
           and sum(f32_counts.values()) == n_pre + L_dec,
           f"phase 9 (c): the f32 prefill and decode step missed the f32 "
           f"kernel: {f32_counts}")
-    plain_flash = (lambda q, k, v, causal, window:
+    plain_flash = (lambda q, k, v, causal, window, **kw:
                    flash_attention_plain(q, k, v, causal=causal,
                                          window=window))
     with _patched(layers, flash_attention=plain_flash):
@@ -3021,8 +3106,8 @@ def phase9(dev, smi: str) -> dict:
             c["cross_k"].zero_()
             c["cross_v"].zero_()
 
-    causal_encoder = (lambda q, k, v, causal, window: op_flash(
-        q, k, v, causal or q.shape[2] == k.shape[2], window))
+    causal_encoder = (lambda q, k, v, causal, window, **kw: op_flash(
+        q, k, v, causal or q.shape[2] == k.shape[2], window, **kw))
     with _patched(layers, flash_attention=causal_encoder):
         bad_causal, _, _ = f32_run()
     planted = {"the encoder run causally": bad_causal,
@@ -3328,7 +3413,7 @@ def phase10(dev, smi: str) -> dict:
           f"phase 10 (c): the f32 step missed the f32 kernels: "
           f"{f32_counts}")
     plain = f32_step(
-        flash_attention=lambda q, k, v, causal, window:
+        flash_attention=lambda q, k, v, causal, window, **kw:
             flash_attention_plain(q, k, v, causal=causal, window=window),
         moe_gmm=moe_gmm_plain)
     d = _train_diff(kern, plain)
@@ -3342,8 +3427,8 @@ def phase10(dev, smi: str) -> dict:
         "the aux term divided by the number of layers": dict(
             moe_aux_loss=lambda x, p, c: real_aux(x, p, c) / c.n_layers),
         "flash run non-causally": dict(
-            flash_attention=lambda q, k, v, causal, window: op_flash(
-                q, k, v, False, window))}
+            flash_attention=lambda q, k, v, causal, window, **kw: op_flash(
+                q, k, v, False, window, **kw))}
     refused = []
     for what, patch in planted.items():
         bad = _train_diff(f32_step(**patch), plain)
@@ -4111,9 +4196,12 @@ def _forward_ops(cfg, B: int, S: int) -> float:
 
 
 def _p14_train(dev, smi: str, tag: str, cfg, B: int, S: int, counters,
-               want_fwd: dict, checkpoint: bool) -> dict:
+               want_fwd: dict, checkpoint: bool,
+               fit: tuple = (P14_FIT_STEPS, P14_FIT_LR, P14_FIT_MARGIN)
+               ) -> dict:
     """Phase 14 (a) and (b) for one model: ``Trainer.run`` at full width
-    and depth, and the loss on one repeated batch."""
+    and depth, and the loss on one repeated batch (``fit``: the steps, the
+    peak lr and the least fall of the loss)."""
     import shutil
     import torch
     from repro_torch.configs.base import MLSTM, RGLRU, SLSTM, ShapeCfg
@@ -4283,31 +4371,32 @@ def _p14_train(dev, smi: str, tag: str, cfg, B: int, S: int, counters,
           f"measured {ms / bound_ms:.2f}x the bound on {smi}")
 
     # -- (b) the loss falls on one repeated batch --------------------------
-    fit = make_train_step(cfg, tr.pcfg, peak_lr=1e-3, warmup=1,
-                          total_steps=P14_FIT_STEPS)
+    n_fit, fit_lr, margin = fit
+    fit = make_train_step(cfg, tr.pcfg, peak_lr=fit_lr, warmup=1,
+                          total_steps=n_fit)
     batch = tr.data.batch_at(0)
     fit_losses = []
     reset_launches(counters)
-    for i in range(P14_FIT_STEPS):
+    for i in range(n_fit):
         _, tr.opt, metrics = fit(tr.model, tr.opt, batch, i)
         fit_losses.append(float(metrics["loss"]))
     with torch.no_grad():   # the loss after the last update: a forward
         fit_losses.append(float(tr.model.forward_train(batch, remat=False)))
     fit_counts = read_launches(counters)
-    check(all(fit_counts[n] == (2 * P14_FIT_STEPS + 1) * want_fwd.get(n, 0)
+    check(all(fit_counts[n] == (2 * n_fit + 1) * want_fwd.get(n, 0)
               for n in fit_counts), f"{tag} (b): launches {fit_counts}")
     check(all(math.isfinite(x) for x in fit_losses)
-          and fit_losses[-1] <= fit_losses[0] - P14_FIT_MARGIN,
+          and fit_losses[-1] <= fit_losses[0] - margin,
           f"{tag} (b): the loss fell from {fit_losses[0]} to "
-          f"{fit_losses[-1]}, less than {P14_FIT_MARGIN}")
-    print(f"{tag} (b): {P14_FIT_STEPS} step(s) of make_train_step on one "
-          f"batch (warmup 1, peak lr 1e-3), then its loss: "
+          f"{fit_losses[-1]}, less than {margin}")
+    print(f"{tag} (b): {n_fit} step(s) of make_train_step on one batch "
+          f"(warmup 1, peak lr {fit_lr:g}), then its loss: "
           f"{[round(x, 4) for x in fit_losses]}, a fall of "
-          f"{fit_losses[0] - fit_losses[-1]:.4f} (at least {P14_FIT_MARGIN}) "
-          f"on {smi}")
+          f"{fit_losses[0] - fit_losses[-1]:.4f} (at least {margin}) on "
+          f"{smi}")
     del tr, batch, fit
     torch.cuda.empty_cache()
-    return {"ms": ms, "forward_ms": f_ms, "peak_bytes": peak,
+    return {"ms": ms, "forward_ms": f_ms, "peak_bytes": peak, "held": held,
             "by_kernel": by_k, "busy": busy, "host_backward_ms": span_ms,
             "bound_ms": bound_ms}
 
@@ -4422,7 +4511,7 @@ def _p14_f32(dev, smi: str, tag: str, cfg, B: int, S: int, depth: int,
     # version's decay overflows above the diagonal at 128-step chunks, and
     # its masked gradient there is NaN
     plain_ops = dict(
-        flash_attention=lambda q, k, v, causal, window:
+        flash_attention=lambda q, k, v, causal, window, **kw:
             flash_attention_plain(q, k, v, causal=causal, window=window),
         rglru_scan=rglru_scan_plain,
         mlstm_chunk=lambda q, k, v, lf, gi, bt:
@@ -4434,9 +4523,10 @@ def _p14_f32(dev, smi: str, tag: str, cfg, B: int, S: int, depth: int,
     planted = {}
     if SWA in kinds:
         planted["the window one key short"] = [(layers, dict(
-            flash_attention=lambda q, k, v, causal, window:
+            flash_attention=lambda q, k, v, causal, window, **kw:
                 ops["flash_attention"](q, k, v, causal,
-                                       window - 1 if window else window))
+                                       window - 1 if window else window,
+                                       **kw))
             )]
     if RGLRU in kinds:
         # training starts every scan from h0 = 0, so the RG-LRU runs as two
@@ -4480,7 +4570,7 @@ def _p14_f32(dev, smi: str, tag: str, cfg, B: int, S: int, depth: int,
     m64.load_state_dict({n: t.double() for n, t in init.items()},
                         assign=True)
     wit = _f32_train_step(m64, init, batch, [(layers, dict(
-        flash_attention=lambda q, k, v, causal, window:
+        flash_attention=lambda q, k, v, causal, window, **kw:
             attention_ref(q, k, v, causal=causal, window=window),
         rglru_scan=rglru_scan_ref,
         mlstm_chunk=lambda q, k, v, lf, gi, bt:
@@ -4534,39 +4624,45 @@ def _p14_f32(dev, smi: str, tag: str, cfg, B: int, S: int, depth: int,
     return {"counts": counts, "diff": d, "floor": floor, "tol": tol}
 
 
+def _train_launches(cfg, route: str) -> dict:
+    """The library kernels' launches in one forward of ``cfg``'s training
+    path (as many again in the recompute), by kernel name: its attention
+    cores on flash ``route``, its RG-LRU scans and chunked mLSTMs."""
+    from repro_torch.configs.base import ATTN, MLSTM, RGLRU, SWA
+    kinds = [s.mixer for s in cfg.blocks()]
+    n_attn = sum(k in (ATTN, SWA) for k in kinds) \
+        + sum(s.cross_attn for s in cfg.blocks()) \
+        + (cfg.enc_layers if cfg.encoder_decoder else 0)
+    n = {route: n_attn, "rglru_scan": kinds.count(RGLRU),
+         "mlstm_chunk": kinds.count(MLSTM)
+         if cfg.mlstm_impl == "chunked" else 0}
+    return {k: v for k, v in n.items() if v}
+
+
 def phase14(dev, smi: str) -> dict:
     """Phase 14: the recurrent and encoder-decoder families' training path
-    at full width and depth on the card (``P14_MODELS``): (a)
+    at full width and depth on the card (``P14_MODELS``; xlstm-125m at
+    ``P14_DEPTH``'s blocks): (a)
     ``Trainer.run``, (b) the loss on one repeated batch, (c) one f32 step
     at reduced depth on the kernels against the plain versions.  Returns
     the kernels line's ``train_path`` entries, by model and kernel name."""
-    import torch
     from repro_torch import configs
-    from repro_torch.configs.base import ATTN, MLSTM, RGLRU, SWA
-
-    def launches(cfg, route: str) -> dict:
-        kinds = [s.mixer for s in cfg.blocks()]
-        n_attn = sum(k in (ATTN, SWA) for k in kinds) \
-            + sum(s.cross_attn for s in cfg.blocks()) \
-            + (cfg.enc_layers if cfg.encoder_decoder else 0)
-        n = {route: n_attn, "rglru_scan": kinds.count(RGLRU),
-             "mlstm_chunk": kinds.count(MLSTM)
-             if cfg.mlstm_impl == "chunked" else 0}
-        return {k: v for k, v in n.items() if v}
 
     counters = launch_counters()
     out = {}
     for arch, getter, B, S, B32, L32 in P14_MODELS:
         tag = f"phase 14 {arch}"
         cfg = getattr(configs, getter)(arch)
+        if arch in P14_DEPTH:
+            cfg = _cut_depth(cfg, P14_DEPTH[arch])
         route = "flash_attention_sm90" if cfg.param_dtype == "bfloat16" \
             else "flash_attention"
-        want = launches(cfg, route)
+        want = _train_launches(cfg, route)
         t0 = time.perf_counter()
         res = _p14_train(dev, smi, tag, cfg, B, S, counters, want,
                          checkpoint=arch == "xlstm-125m")
         t_train = time.perf_counter() - t0
-        want32 = launches(_cut_depth(cfg, L32), "flash_attention")
+        want32 = _train_launches(_cut_depth(cfg, L32), "flash_attention")
         f32 = _p14_f32(dev, smi, tag, cfg, B32, S, L32, counters, want32)
         print(f"# {tag}: (a) and (b) {t_train:.1f} s, (c) "
               f"{time.perf_counter() - t0 - t_train:.1f} s")
@@ -4585,6 +4681,149 @@ def phase14(dev, smi: str) -> dict:
                 entry.setdefault(name, {})["launches_f32_step"] = n
         out[arch] = entry
     return out
+
+
+def _p15_train(dev, smi: str, counters) -> dict:
+    """Phase 15 (d): each of ``P15_PREDICT_ONLY + P15_TRAIN`` in the
+    production profile, its peak first predicted by the one-card dry run
+    (phase 12's ``lower_cell`` on ``meta`` at the Trainer's batch and
+    parallel settings), then trained as phase 14 trains (``_p14_train``):
+    the measured peak beside the prediction.  Returns the kernels line's
+    ``train_path`` entries by model."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import ParallelCfg, ShapeCfg
+    from repro_torch.launch import dryrun
+
+    shape = ShapeCfg("phase15", TRAIN_S, TRAIN_B, "train")
+    # the Trainer's own defaults (repro_torch.runtime.Trainer)
+    pcfg = ParallelCfg(grad_accum=1, remat=True, seq_shard=False)
+    out = {}
+    for arch in P15_PREDICT_ONLY + P15_TRAIN:
+        tag = f"phase 15 {arch}"
+        cfg = configs.get_optimized_config(arch)
+        t0 = time.perf_counter()
+        reset_launches(counters)
+        cell = dryrun.lower_cell(arch, shape, False, pcfg_override=pcfg,
+                                 cfg_overrides=configs.OPTIMIZED_PROFILE,
+                                 mesh=torch.device("meta"))
+        check(cell["status"] == "ok" and cfg.attn_vjp == "flash"
+              and not any(read_launches(counters).values()),
+              f"{tag}: the dry run's trace: {cell.get('status')}")
+        pred, state = cell["peak_bytes_per_device"], \
+            cell["state_bytes_per_device"]
+        fits = pred < 80e9
+        print(f"{tag} (d): the one-card dry run of its train step "
+              f"{TRAIN_B} x {TRAIN_S} in the production profile (attn_vjp="
+              f"{cfg.attn_vjp!r}), traced on meta in "
+              f"{time.perf_counter() - t0:.1f} s: state {state / 1e9:.3f} "
+              f"GB, predicted peak {pred / 1e9:.3f} GB: "
+              f"{'fits' if fits else 'does not fit'} the card's 80 GB")
+        if arch in P15_PREDICT_ONLY:
+            check(not fits, f"{tag}: the dry run predicts that it fits")
+            continue
+        check(fits, f"{tag}: the dry run predicts {pred} B, past the card")
+        res = _p14_train(dev, smi, tag, cfg, TRAIN_B, TRAIN_S, counters,
+                         _train_launches(cfg, "flash_attention_sm90"),
+                         checkpoint=False,
+                         fit=(P15_FIT_STEPS, P15_FIT_LR, P15_FIT_MARGIN))
+        peak = res["peak_bytes"] - res["held"]
+        print(f"{tag} (d): max_memory_allocated {peak / 1e9:.3f} GB above "
+              f"the {res['held'] / 1e9:.3f} GB held before, against the "
+              f"predicted {pred / 1e9:.3f} GB ({peak / pred:.3f}x) on "
+              f"{smi}")
+        n = cfg.n_layers
+        dev_ms = res["by_kernel"]["flash_attention"]
+        out[arch] = {"flash_attention_sm90": {
+            "launches_per_step": 2 * n, "launches_forward": n,
+            "device_ms_step": dev_ms, "share_step": dev_ms / res["ms"],
+            "step_ms": res["ms"], "peak_bytes": peak,
+            "predicted_peak_bytes": pred}}
+    return out
+
+
+def _p15_vjps(dev, smi: str, counters) -> dict:
+    """Phase 15 (e): one phase-14 step of whisper-large-v3 under each
+    attention backward of ``P15_VJPS`` (a warm-up step, then the step
+    measured): ms a step, the peak above what the process held, the
+    launches.  Both take the same first step's loss, bit for bit (one
+    forward)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.runtime import Trainer
+
+    _, getter, B, S, _, _ = next(m for m in P14_MODELS
+                                 if m[0] == WHISPER_ARCH)
+    base = getattr(configs, getter)(WHISPER_ARCH)
+    shape = ShapeCfg("phase14", S, B, "train")
+    res = {}
+    for vjp in P15_VJPS:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        tr = Trainer(dataclasses.replace(base, attn_vjp=vjp), shape, dev,
+                     seed=0)
+        tr.init_state()
+        first = tr.run(1).losses[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        loss = tr.run(1).losses[0]
+        torch.cuda.synchronize()
+        res[vjp] = {"ms": (time.perf_counter() - t0) * 1e3,
+                    "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                    "losses": [first, loss],
+                    "launches": read_launches(counters)}
+        del tr
+    torch.cuda.empty_cache()
+    a, f = res["autodiff"], res["flash"]
+    check(a["losses"][0] == f["losses"][0]
+          and all(math.isfinite(x) for x in a["losses"] + f["losses"]),
+          f"phase 15 (e): first losses {a['losses'][0]!r} (autodiff) and "
+          f"{f['losses'][0]!r} (flash): one forward, not bit-equal")
+    check(a["launches"] == f["launches"],
+          f"phase 15 (e): launches {a['launches']} and {f['launches']}")
+    for vjp, r in res.items():
+        print(f"phase 15 (e) {WHISPER_ARCH} attn_vjp={vjp!r}: {B} x {S} "
+              f"step {r['ms']:.3f} ms, peak {r['peak_bytes'] / 1e9:.3f} GB "
+              f"above what the process held, losses {r['losses']}, "
+              f"launches {r['launches']} on {smi}")
+    print(f"# phase 15 (e): the chunked backward's step "
+          f"{f['ms'] / a['ms']:.4f}x the whole recompute's, its peak "
+          f"{f['peak_bytes'] / a['peak_bytes']:.4f}x")
+    return {vjp: {k: r[k] for k in ("ms", "peak_bytes")}
+            for vjp, r in res.items()}
+
+
+def phase15(dev, smi: str) -> dict:
+    """Phase 15: the dense, windowed and VLM families at full width and
+    depth (``P15_SERVE``): (a)-(c) served as phase 8 serves its models
+    (``_phase8_model``, (c) at ``P15_F32_LAYERS``); (d) the dry run's
+    predicted peaks and the production profile trained
+    (``_p15_train``); (e) whisper-large-v3's step under both attention
+    backward passes (``_p15_vjps``).  Returns ``{"serve": ..., "train":
+    ..., "vjps": ...}``, the first two by model and kernel name."""
+    import torch
+    counters = launch_counters()
+    serve = {}
+    with torch.no_grad():
+        for arch, B, S in P15_SERVE:
+            t0 = time.perf_counter()
+            serve[arch] = _phase8_model(dev, smi, arch, "get_config", B, S,
+                                        F32_MODEL_TOL, P15_STEPS,
+                                        tag="phase 15",
+                                        f32_layers=P15_F32_LAYERS)
+            print(f"# phase 15 {arch}: served in "
+                  f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train = _p15_train(dev, smi, counters)
+    print(f"# phase 15 (d): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vjps = _p15_vjps(dev, smi, counters)
+    print(f"# phase 15 (e): {time.perf_counter() - t0:.1f} s")
+    return {"serve": serve, "train": train, "vjps": vjps}
 
 
 def main() -> int:
@@ -5030,6 +5269,18 @@ def main() -> int:
                                              {"launches_per_step": 0})
                                for arch, res in p14.items()}
     lap("phase 14")
+    # -- phase 15: the dense, windowed and VLM families at full width --------
+    p15 = phase15(dev, smi)
+    for k in kernels:
+        for key, part in (("model_path", p15["serve"]),
+                          ("train_path", p15["train"])):
+            path = {arch: res[k["name"]] for arch, res in part.items()
+                    if k["name"] in res}
+            if path:
+                k.setdefault(key, {}).update(path)
+        if k["name"] == "flash_attention_sm90":
+            k["train_path"][WHISPER_ARCH]["attn_vjp_steps"] = p15["vjps"]
+    lap("phase 15")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

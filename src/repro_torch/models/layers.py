@@ -251,10 +251,11 @@ def attention(x, p: Params, cfg: ModelConfig, *, causal: bool = True,
     """Self-attention over x [B,S,D]: causal (windowed when ``window``),
     or bidirectional with ``causal=False`` (an encoder; RoPE on q and k
     all the same); the core runs on the flash attention kernel (on a split
-    mesh, on this rank's heads).  Returns ``(y, k, v)`` with the rotated
-    keys and the values ``[B,S,Hkv,hd]`` that the cache keeps (this rank's
-    kv heads where they are split; the JAX prefill projects them a second
-    time)."""
+    mesh, on this rank's heads), its backward as ``cfg.attn_vjp`` says
+    (``"flash"``: chunks of 512 query rows).  Returns ``(y, k, v)`` with
+    the rotated keys and the values ``[B,S,Hkv,hd]`` that the cache keeps
+    (this rank's kv heads where they are split; the JAX prefill projects
+    them a second time)."""
     x = _mm_input(ac, x)
     B, S, D = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -269,7 +270,7 @@ def attention(x, p: Params, cfg: ModelConfig, *, causal: bool = True,
     o = flash_attention(q.transpose(1, 2),
                         _kv_for(ac, k, hq, h, hkv).transpose(1, 2),
                         _kv_for(ac, v, hq, h, hkv).transpose(1, 2), causal,
-                        window)                             # [B,H,S,hd]
+                        window, vjp=cfg.attn_vjp)           # [B,H,S,hd]
     y = _row_parallel(ac, o.transpose(1, 2).reshape(B, S, hq * hd),
                       p["wo"], h * hd)
     return y, k, v
@@ -315,7 +316,8 @@ def cross_attention(x, p: Params, cfg: ModelConfig, k, v, ac=None,
             k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
     else:
         k, v = (_kv_for(ac, t, hq, h, hkv, dim=1) for t in (k, v))
-    o = flash_attention(q, k, v, False, None)                # [B,H,S,hd]
+    o = flash_attention(q, k, v, False, None,
+                        vjp=cfg.attn_vjp)                   # [B,H,S,hd]
     return _row_parallel(ac, o.transpose(1, 2).reshape(B, S, hq * hd),
                          p["wo"], h * hd)
 

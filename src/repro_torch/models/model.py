@@ -102,6 +102,37 @@ def _whole_columns(ac, y, n: int):
     return ac.gather(y, -1) if ac is not None and y.shape[-1] < n else y
 
 
+def head_logits(x, w, ac, vocab: int, shard: bool = True):
+    """The f32 logits ``x @ w`` of the head ``w [D, V or V/n]``.  Where
+    ``w``'s vocab columns are split over ``model`` they are this rank's
+    slice, or with ``shard`` false (``ParallelCfg.shard_logits``, the
+    reference's whole-logits constraint) every rank's slices gathered
+    whole over ``model``."""
+    logits = L.f32up(x @ w.to(x.dtype))
+    if ac is not None and not shard and logits.shape[-1] < vocab:
+        return ac.gather(logits, -1)
+    return logits
+
+
+def token_nll(logits, labels, ac, vocab: int):
+    """Each position's negative log-likelihood of its label, f32.  On a
+    vocab split over ``model``: the max and the sum of exponentials
+    combined over ``model`` (a log-sum-exp), the label's logit taken by
+    the rank that holds it."""
+    V_local = logits.shape[-1]
+    if ac is None or V_local == vocab:
+        # the label's logit by a gather: the reference's one-hot sum adds
+        # exact zeros to it
+        return torch.logsumexp(logits, dim=-1) \
+            - logits.gather(-1, labels[..., None])[..., 0]
+    m = ac.max(logits.amax(-1, keepdim=True))
+    lse = torch.log(ac.sum(torch.exp(logits - m).sum(-1))) + m[..., 0]
+    local = labels - ac.index * V_local
+    inside = (local >= 0) & (local < V_local)
+    own = logits.gather(-1, local.clamp(0, V_local - 1)[..., None])
+    return lse - ac.sum(own[..., 0] * inside.to(own.dtype))
+
+
 #: the recurrent mixers, by block kind: the keys of their state (cache)
 STATE_KEYS = {RGLRU: ("h", "conv"), MLSTM: ("C", "n", "m"),
               SLSTM: ("c", "n", "h", "m")}
@@ -455,30 +486,16 @@ class Model(nn.Module):
         return ac.sum(e.to(self.compute_dtype))
 
     def _logits(self, x):
-        """f32 logits over the padded vocab: this rank's slice of it where
-        the head's vocab is split over ``model``."""
+        """f32 logits over the padded vocab (:func:`head_logits`): this
+        rank's slice of it where the head's vocab is split over ``model``
+        and ``pcfg.shard_logits`` holds, else whole."""
         name = "embed" if self.cfg.tie_embeddings else "lm_head"
-        with _gathered(self.executor, self, (name,)):
+        ex = self.executor
+        with _gathered(ex, self, (name,)):
             w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-            return L.f32up(x @ w.to(x.dtype))
-
-    def _nll(self, logits, labels, ac=None):
-        """Each position's negative log-likelihood of its label, f32.  On
-        a vocab split over ``model``: the max and the sum of exponentials
-        combined over ``model`` (a log-sum-exp), the label's logit taken
-        by the rank that holds it."""
-        V_local = logits.shape[-1]
-        if ac is None or V_local == self.cfg.padded_vocab:
-            # the label's logit by a gather: the reference's one-hot sum
-            # adds exact zeros to it
-            return torch.logsumexp(logits, dim=-1) \
-                - logits.gather(-1, labels[..., None])[..., 0]
-        m = ac.max(logits.amax(-1, keepdim=True))
-        lse = torch.log(ac.sum(torch.exp(logits - m).sum(-1))) + m[..., 0]
-        local = labels - ac.index * V_local
-        inside = (local >= 0) & (local < V_local)
-        own = logits.gather(-1, local.clamp(0, V_local - 1)[..., None])
-        return lse - ac.sum(own[..., 0] * inside.to(own.dtype))
+            return head_logits(x, w, _split_at(ex, 0),
+                               self.cfg.padded_vocab,
+                               ex is None or ex.rules.pcfg.shard_logits)
 
     def _final_norm(self, x):
         with _gathered(self.executor, self.final_norm):
@@ -558,7 +575,7 @@ class Model(nn.Module):
         logits = self._logits(x[:, F:][:, :-1])          # [B, S-1, Vp] f32
         labels = tokens[:, 1:].long()
         lmask = mask[:, F + 1:]
-        nll = self._nll(logits, labels, ac)
+        nll = token_nll(logits, labels, ac, self.cfg.padded_vocab)
         per_group = [torch.stack(a).sum() if a else
                      torch.zeros((), device=nll.device)
                      for a in groups or ()]

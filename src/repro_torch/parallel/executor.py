@@ -65,7 +65,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .sharding import MeshRules, distribute, placements
-from .split import Group, ModelSplit, MoERows, levels
+from .split import Group, ModelSplit, MoERows, greedy, levels
 
 
 class _Gather(torch.autograd.Function):
@@ -263,10 +263,8 @@ class MeshExecutor:
         """The greedy tokens ``[B_rows, 1]`` of this rank's rows from the
         logits of a step (:meth:`place_logits`): the argmax of each row's
         last position, taken across the vocab split where there is one."""
-        local = logits.to_local()[:, -1]
-        if self.model_dim(logits) is None:
-            return local.argmax(-1)[:, None]
-        return self._split.argmax(local)[:, None]
+        return greedy(logits.to_local()[:, -1], self._split,
+                      self.rules.cfg.padded_vocab)[:, None]
 
     def rows_of(self, dt: DTensor) -> torch.Tensor:
         """This rank's rows of ``dt``, whole along every other dimension."""

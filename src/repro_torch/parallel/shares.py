@@ -15,9 +15,10 @@ collectives.  The functions here run those layers once for every rank of
 a ``("data", "model")`` mesh of the given sizes, each on its rows and on
 the blocks of the parameters that :class:`MeshRules` gives it, in threads
 of this process that take turns: a thread runs until it waits in a
-collective, and a collective is the concatenation or the rank-order sum
-of the members' tensors.  So one device, a card or the CPU, runs what a
-mesh runs, kernels included, and holds it against the one-device layer.
+collective, and a collective is the concatenation, the rank-order sum or
+the elementwise max of the members' tensors.  So one device, a card or
+the CPU, runs what a mesh runs, kernels included, and holds it against
+the one-device layer.
 """
 from __future__ import annotations
 
@@ -30,8 +31,9 @@ import torch
 
 from ..configs.base import MLSTM, SLSTM, ModelConfig, ParallelCfg
 from ..models import layers as L
+from ..models.model import head_logits, token_nll
 from .sharding import MeshRules
-from .split import Group, ModelSplit, MoERows, assemble, block
+from .split import Group, ModelSplit, MoERows, assemble, block, greedy
 
 
 def rules_for(cfg: ModelConfig, data: int, model: int) -> MeshRules:
@@ -137,6 +139,11 @@ class _Local:
             out = out + s
         return out
 
+    def max(self, t):
+        ranks, key = self.group
+        parts = ranks.exchange(key, self.n, self.index, t.detach())
+        return torch.stack(parts).amax(0)
+
 
 class _LocalGroup(_Local, Group):
     pass
@@ -213,6 +220,24 @@ def moe_grouped(x, p: Mapping[str, torch.Tensor], cfg: ModelConfig,
         return L.moe_ffn_grouped(x.chunk(n_d)[d], model_blocks(p, rules, m),
                                  cfg, ac)
     return _rows_of(_mesh(rules, rank), n_m)
+
+
+def lm_head(x, w, labels, cfg: ModelConfig, n: int, shard_logits: bool
+            ) -> list:
+    """The head over ``x [B, S, D]`` with ``w [D, V]`` as ``n`` ``model``
+    ranks run it, ``w``'s vocab columns split over them: for each rank,
+    its logits (:func:`~repro_torch.models.model.head_logits`: its vocab
+    slice, or whole when ``shard_logits`` is false), each position's loss
+    of ``labels`` (:func:`~repro_torch.models.model.token_nll`) and the
+    greedy pick of each row's last position
+    (:func:`~repro_torch.parallel.split.greedy`)."""
+    V = cfg.padded_vocab
+
+    def rank(d, m, rows, ac):
+        logits = head_logits(x, w.chunk(n, dim=1)[m], ac, V, shard_logits)
+        return (logits, token_nll(logits, labels, ac, V),
+                greedy(logits[:, -1], ac, V))
+    return _mesh(rules_for(cfg, 1, n), rank)
 
 
 #: each recurrent mixer's layer, by form

@@ -22,8 +22,10 @@ rows of ``embed`` and columns of ``lm_head``), and the layers call:
 * :meth:`sum` / :meth:`max`: the vocab-parallel embedding, cross-entropy
   and greedy pick, and the log-sum-exp of a cache split by slots.
 
-The logits stay split over the vocab (the reference's default
-``shard_logits``; the port has no whole-logits variant).
+The logits stay split over the vocab where ``pcfg.shard_logits`` holds
+(the reference's default); with it false they are gathered whole over
+``model`` (:func:`~repro_torch.models.model.head_logits`), and the loss
+and the greedy pick (:func:`greedy`) then take the whole vocab.
 
 A tensor that the ``model`` ranks hold in blocks has a *layout*
 (:meth:`ModelSplit.relayout`): None (whole), a dim ``d`` (``n`` blocks
@@ -203,6 +205,15 @@ class ModelSplit(Group):
         idxs = self.gather(idx.contiguous(), -1)
         best = vals.argmax(dim=-1, keepdim=True)              # first max
         return idxs.gather(-1, best)[..., 0]
+
+
+def greedy(logits, ac: Optional[ModelSplit], vocab: int):
+    """The greedy pick ``[...]`` over the last dim of ``logits``: the
+    whole vocab of ``vocab`` entries, or this rank's slice of it, whose
+    pick is taken across the ranks (:meth:`ModelSplit.argmax`)."""
+    if ac is None or logits.shape[-1] == vocab:
+        return logits.argmax(-1)
+    return ac.argmax(logits)
 
 
 def levels(layout: Layout, n: int) -> Tuple[Tuple[int, int], ...]:

@@ -16,6 +16,9 @@ against the one-device layers, and those against the JAX package.
   sLSTM's head repeated), from a state that a prefix left: the summed
   partial outputs and the states assembled from their layouts within
   ``SHARE_ATOL`` of the one-device layer.
+* The head under ``ParallelCfg.shard_logits=False``: the logits gathered
+  whole over ``model`` on every rank, equal to the one-device logits,
+  with the split run's loss and greedy tokens.
 * The one-device layers (``moe_ffn_global``, ``moe_ffn_grouped``,
   ``moe_aux_loss``, ``_mlstm_scan``, ``mlstm_chunked``, ``slstm``) against
   the JAX package's, from the same numpy-seeded weights carried into the
@@ -247,3 +250,28 @@ def test_mixer_shares_assemble_to_one_device(kind, form, H, n):
         assert got_st[k].shape == v.shape, k
         assert _err(got_st[k], v) <= SHARE_ATOL * max(1.0, float(
             v.abs().max())), k
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_whole_logits_without_shard_logits(n):
+    """``ParallelCfg.shard_logits=False`` (the reference's whole-logits
+    constraint): the head's vocab columns split over ``n`` ``model``
+    ranks, every rank's logits are the one-device logits, whole, and its
+    loss and greedy tokens those of the split run (vocab-parallel
+    cross-entropy and greedy pick)."""
+    _, cfg = _cfgs("llama3.2-3b")
+    rng = np.random.default_rng(4)
+    V = cfg.padded_vocab
+    x = torch.from_numpy(_x(cfg.d_model))
+    w = torch.from_numpy((rng.normal(size=(cfg.d_model, V))
+                          / np.sqrt(cfg.d_model)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    one = x @ w
+    whole = shares.lm_head(x, w, labels, cfg, n, shard_logits=False)
+    split = shares.lm_head(x, w, labels, cfg, n, shard_logits=True)
+    for (logits, nll, pick), (s_logits, s_nll, s_pick) in zip(whole, split):
+        assert logits.shape == (B, S, V) and s_logits.shape == (B, S, V // n)
+        assert torch.equal(logits, one)
+        assert _err(nll, s_nll) <= SHARE_ATOL
+        assert torch.equal(pick, s_pick)
+        assert torch.equal(pick, one[:, -1].argmax(-1))

@@ -14,7 +14,8 @@ its window), xlstm-125m's production profile (the chunked mLSTM in
 chunks of 16, whose backward recomputes through the chunked oracle) and
 whisper-large-v3 (bidirectional, causal and cross flash attention).
 The bf16 model's step on the wgmma/TMA kernels must give a finite loss
-and launch them likewise.
+and launch them likewise.  Flash attention's chunked backward
+(``attn_vjp="flash"``) agrees with its whole recompute in f32 and bf16.
 
 Marked ``gpu``: without a CUDA device every test skips.  On a machine with
 one (no jax needed), from the checkout root:
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import ATTN, MLSTM, RGLRU, SWA, ParallelCfg
+from repro_torch.kernels import flash_attention
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_fwd, flash_attention_plain)
 from repro_torch.kernels.mlstm_chunk.kernel import (mlstm_chunk_fwd,
@@ -51,7 +53,7 @@ FAMILIES = [("recurrentgemma-2b", {}),
             ("xlstm-125m", {"mlstm_impl": "chunked", "mlstm_chunk": 16}),
             ("whisper-large-v3", {})]
 #: the layers' kernel ops as their plain versions
-PLAIN = {"flash_attention": lambda q, k, v, causal, window:
+PLAIN = {"flash_attention": lambda q, k, v, causal, window, **kw:
          flash_attention_plain(q, k, v, causal=causal, window=window),
          "moe_gmm": moe_gmm_plain, "rglru_scan": rglru_scan_plain,
          "mlstm_chunk": lambda q, k, v, lf, gi, bt:
@@ -168,6 +170,35 @@ def test_family_train_step_on_the_kernels_matches_plain(dev, arch, over):
             "mlstm_chunk": 2 * kinds.count(MLSTM)}
     assert sum(want.values()) > 0
     assert _kernels_match_plain(cfg, dev, PLAIN) == want
+
+
+#: the "flash" backward against the "autodiff" one on the card, each
+#: gradient's largest error over its largest entry: f32 sums in another
+#: order (1e-5, as the CPU test against the JAX model), bf16 one rounding
+#: of the f32 result to bf16 apart
+VJP_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_backward_matches_autodiff(dev, dtype):
+    """The chunked backward (``attn_vjp="flash"``: chunks of 512 query
+    rows, the last of 76) against the whole recompute, causal, windowed
+    and bidirectional, the forward on the kernels."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn((2, 4, 1100, 64), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    for causal, window in ((True, None), (True, 300), (False, None)):
+        grads = {}
+        for vjp in ("autodiff", "flash"):
+            ts = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = flash_attention(*ts, causal, window, vjp=vjp)
+            grads[vjp] = torch.autograd.grad(o, ts, do)
+        for a, f in zip(grads["autodiff"], grads["flash"]):
+            assert f.dtype == dtype
+            err = float((f.float() - a.float()).abs().max()
+                        / a.float().abs().max())
+            assert err <= VJP_RTOL[dtype], (causal, window, err)
 
 
 def test_bf16_train_step_runs_on_the_wgmma_kernels(dev):

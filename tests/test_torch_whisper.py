@@ -159,8 +159,8 @@ def test_causal_encoder_misses_the_reference(setup, monkeypatch):
     output by more than 0.1: the tolerance sees it."""
     flash = layers.flash_attention
     monkeypatch.setattr(layers, "flash_attention",
-                        lambda q, k, v, causal, window:
-                        flash(q, k, v, True, window))
+                        lambda q, k, v, causal, window, **kw:
+                        flash(q, k, v, True, window, **kw))
     out = setup["model"].encode(
         torch.from_numpy(setup["inp"]["enc_embeds"])).numpy()
     err = float(np.max(np.abs(out - setup["ref"]["encoder"])))
