@@ -1,0 +1,5 @@
+"""``device_idle.train`` in the MoE cells, moving ``train_tokens_per_s.moe``."""
+from portbench import harness
+
+_base = harness.load_module("metrics", "device_idle.train")
+value = _base.value
